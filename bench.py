@@ -1,75 +1,55 @@
-"""Headline benchmark: full deferred+shadows+SSAO+PBR frame of the
-skull+car scene at 1080p on one TPU chip (BASELINE.json's metric).
+"""Headline benchmark: BASELINE config 4 (the cascade scene: 1080p,
+deferred G-buffer, 4 cascades of 2048^2 in one atlas, PCF, half-res SSAO,
+GGX PBR, sky) through Renderer.render on the default JAX device.
 
 Prints ONE JSON line:
     {"metric": ..., "value": ms_per_frame, "unit": "ms/frame",
-     "vs_baseline": baseline_ms / value}
+     "vs_baseline": baseline_ms / value, "device": {...},
+     "rasterizer": "kernel" | "xla"}
 
-vs_baseline > 1 means faster than the 16 ms/frame north-star target.
+vs_baseline > 1 means faster than the 16 ms/frame (60 Hz) target. Any
+failure exits non-zero and prints no result. The per-cell benchmark is
+separate work (ROADMAP S1).
 """
 from __future__ import annotations
 
 import json
-import sys
 import time
 
 BASELINE_MS = 16.0
-
-
-def _run(cfg_fn):
-    import numpy as np
-
-    from crychic_renderer_tpu.app.renderer import Renderer
-
-    scene, cfg, lights = cfg_fn()
-    r = Renderer(scene, cfg, lights=lights)
-
-    # warm up / compile
-    img = r.render(0.0)
-    _ = float(img[0, 0, 0])
-
-    # Amortized frame time: dispatch N frames back-to-back (the functional
-    # analogue of the reference's 3-deep FrameResource pipelining,
-    # CRYCHIC.cpp:135-146) and read one scalar at the end. A per-frame
-    # readback would measure host<->device round-trip latency, not render
-    # throughput.
-    n = 20
-    t0 = time.perf_counter()
-    imgs_last = None
-    for i in range(n):
-        imgs_last = r.render(i / 60.0)
-    _ = float(imgs_last[0, 0, 0])
-    ms = 1000.0 * (time.perf_counter() - t0) / n
-
-    return ms
+FRAMES = 20
 
 
 def main():
+    import jax
+
+    from crychic_renderer_tpu.app import use_compile_cache
+    from crychic_renderer_tpu.app.renderer import Renderer
     from crychic_renderer_tpu.models.scenes_baseline import (
-        config5_full_scene, config4_shadow_pipeline)
+        config4_shadow_pipeline)
 
-    try:
-        ms = _run(config5_full_scene)
-        metric = "ms/frame 1080p skull+car deferred+shadows+SSAO+PBR"
-    except Exception as e:  # keep the driver's JSON contract alive
-        import traceback
+    use_compile_cache()
+    scene, cfg, lights = config4_shadow_pipeline()
+    r = Renderer(scene, cfg, lights=lights)
+    r.render(0.0).block_until_ready()  # compile
 
-        traceback.print_exc()
-        try:
-            ms = _run(config4_shadow_pipeline)
-            metric = ("ms/frame 1080p cascade scene (config 5 failed: "
-                      f"{type(e).__name__})")
-        except Exception:
-            traceback.print_exc()
-            print(json.dumps({
-                "metric": "ms/frame (bench failed)", "value": -1.0,
-                "unit": "ms/frame", "vs_baseline": 0.0}))
-            return
+    # frames back to back with each one finished before the next is timed
+    # as done: ms/frame is the mean wall time of a synchronous frame
+    t0 = time.perf_counter()
+    for i in range(FRAMES):
+        r.render(i / 60.0).block_until_ready()
+    ms = 1000.0 * (time.perf_counter() - t0) / FRAMES
+
+    dev = jax.devices()[0]
     print(json.dumps({
-        "metric": metric,
+        "metric": "ms/frame 1080p config 4 cascade scene "
+                  "deferred+shadows+SSAO+PBR",
         "value": round(ms, 3),
         "unit": "ms/frame",
         "vs_baseline": round(BASELINE_MS / ms, 4),
+        "device": {"platform": dev.platform, "kind": dev.device_kind,
+                   "count": len(jax.devices())},
+        "rasterizer": "kernel" if r.cfg.use_pallas else "xla",
     }))
 
 

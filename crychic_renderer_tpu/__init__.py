@@ -1,4 +1,4 @@
-"""CRYCHIC-TPU: a TPU-native real-time renderer built on JAX/XLA/Pallas.
+"""CRYCHIC: a real-time software renderer built on JAX/XLA/Pallas.
 
 A from-scratch re-design of the capabilities of the D3D12 renderer
 ``UnlimitedRainWorks/CRYCHIC-RENDERER`` (deferred shading, cascaded shadow
@@ -26,8 +26,9 @@ Layers (bottom-up), mirroring the reference's layer map (SURVEY.md §1):
                  + the D3D12 rasterizer hardware itself).
 - ``passes``   — render passes composed into ``render_frame`` in the exact
                  order of CRYCHIC::Draw (CRYCHIC.cpp:172-436).
-- ``parallel`` — multi-chip sharding of the frame over a jax.sharding.Mesh
-                 (screen-tile data parallelism + cascade parallelism).
+- ``parallel`` — multi-device sharding of the frame over a
+                 jax.sharding.Mesh (screen-tile data parallelism + cascade
+                 parallelism).
 - ``app``      — frame loop, config, stats (reference: Common/d3dApp.cpp).
 """
 
@@ -35,13 +36,11 @@ __version__ = "0.1.0"
 
 import jax as _jax
 
-# Geometry correctness: the TPU MXU's DEFAULT matmul precision is one-pass
-# bf16 (8 mantissa bits). Measured on v5e: the vertex world/clip einsums
-# ran with ~4e4x the f32 rounding error (absolute vertex error up to ~2 px)
-# and the raster kernel's triangle-id extraction rounded ids to multiples
-# of 128/256 (experiments/einsum_precision_probe.py, the on-TPU parity
-# sweep). A renderer's transforms are precision-critical end to end, so the
-# package pins full-f32 matmul semantics globally; the FLOP-heavy matmuls
-# (the raster kernels' plane evaluations) already request HIGHEST
-# explicitly, and the remaining einsums are tiny.
+# Geometry correctness: the vertex, clip and cascade transforms are f32
+# matrix products, and on an NVIDIA GPU a DEFAULT-precision f32 product
+# may run in TF32 on the tensor cores (10 mantissa bits, vertex errors of
+# a fraction of a pixel at 1080p). A renderer's transforms are
+# precision-critical end to end (the rasterizer snaps to 1/256 pixel), so
+# the package pins full-f32 matmul semantics globally; the products are
+# tiny and the raster kernel has none.
 _jax.config.update("jax_default_matmul_precision", "float32")

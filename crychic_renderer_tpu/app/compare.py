@@ -39,15 +39,19 @@ def compare(a: np.ndarray, b: np.ndarray) -> dict:
 
 
 def parity(configs, small: bool) -> dict:
-    """Pallas-kernel vs pure-XLA rasterization parity on the CURRENT
-    backend (run on the TPU: `python -m crychic_renderer_tpu.app.compare
-    --parity`). Both paths snap vertices identically, so coverage should
-    agree except where fp edge rounding differs; the check bounds visible
-    disagreement per config."""
+    """Raster-kernel vs XLA-reference frame parity on the CURRENT backend:
+    the compiled kernel on the GPU, the kernel in the Pallas interpreter on
+    the CPU (Renderer refuses any other backend). Both paths snap vertices
+    identically, so coverage should agree except where f32 edge rounding
+    differs; the check bounds visible disagreement per config."""
+    import jax
+
     from ..models.scenes_baseline import CONFIGS
     from .renderer import Renderer
 
-    report = {}
+    on_cpu = jax.default_backend() == "cpu"
+    report = {"backend": jax.default_backend(),
+              "kernel": "interpreted" if on_cpu else "compiled"}
     ok = True
     for c in configs:
         scene, cfg, lights = CONFIGS[c]()
@@ -56,18 +60,15 @@ def parity(configs, small: bool) -> dict:
                 cfg, width=cfg.width // 4, height=cfg.height // 4,
                 shadow_map_size=max(cfg.shadow_map_size // 4, 128))
         imgs = {}
-        for pallas in (True, False):
-            cfgp = dataclasses.replace(cfg, use_pallas=pallas)
+        for kernel in (True, False):
+            cfgp = dataclasses.replace(cfg, use_pallas=kernel,
+                                       pallas_interpret=kernel and on_cpu)
             r = Renderer(scene, cfgp, lights=lights)
-            if r.cfg.use_pallas != pallas and pallas:
-                report[c] = {"skipped": "no TPU backend for the kernel"}
-                break
-            imgs[pallas] = r.render_np(0.0)
-        else:
-            d = compare(imgs[True], imgs[False])
-            d["ok"] = d["frac_gt_2pct"] < 0.005
-            ok = ok and d["ok"]
-            report[c] = d
+            imgs[kernel] = r.render_np(0.0)
+        d = compare(imgs[True], imgs[False])
+        d["ok"] = d["frac_gt_2pct"] < 0.005
+        ok = ok and d["ok"]
+        report[c] = d
         print(f"config {c}: {report[c]}", flush=True)
     report["ok"] = ok
     return report
@@ -81,13 +82,15 @@ def main():
     ap.add_argument("--check", type=str, default=None,
                     help="dir of stored goldens (.npy) to diff against")
     ap.add_argument("--parity", action="store_true",
-                    help="compare Pallas-kernel vs pure-XLA frames")
+                    help="compare raster-kernel vs XLA-reference frames")
     ap.add_argument("--json-out", type=str, default=None,
-                    help="also write the report JSON to this path (the "
-                    "per-round parity artifact: `... --parity --small "
-                    "--json-out PARITY_TPU.json` on the TPU; exit code is "
-                    "nonzero on regression)")
+                    help="also write the report JSON to this path (exit "
+                    "code is nonzero on regression)")
     args = ap.parse_args()
+
+    from . import use_compile_cache
+
+    use_compile_cache()
 
     if args.parity:
         report = parity(args.configs, args.small)

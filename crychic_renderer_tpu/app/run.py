@@ -41,15 +41,14 @@ def main():
         os.environ["JAX_PLATFORMS"] = args.backend
 
     from ..models.scenes_baseline import CONFIGS
+    from . import use_compile_cache
     from .renderer import Renderer, write_png
 
+    use_compile_cache()
     scene, cfg, lights = CONFIGS[args.config]()
     if args.fast:
-        # documented performance preset (PERF.md): half-res PCF factor,
-        # quarter-res SSAO, trilinear texturing (1 dual-mip gather) —
-        # local, bounded image deltas for frame speed
-        cfg = dataclasses.replace(cfg, fast_shadow_factor=True,
-                                  ssao_scale=4, anisotropy=1)
+        # documented performance preset (RenderConfig.fast_preset)
+        cfg = cfg.fast_preset()
     if args.small:
         cfg = dataclasses.replace(
             cfg, width=cfg.width // 4, height=cfg.height // 4,
@@ -62,21 +61,26 @@ def main():
           f"ssao={cfg.ssao_enabled} tris={scene.opaque.num_triangles}")
     t0 = time.time()
     r = Renderer(scene, cfg, lights=lights)
-    print(f"scene upload: {time.time() - t0:.1f}s")
+    print(f"scene upload: {time.time() - t0:.1f}s; rasterizer: "
+          f"{'kernel' if r.cfg.use_pallas else 'XLA'}"
+          f"{' (interpreted)' if r.cfg.pallas_interpret else ''}")
 
     t0 = time.time()
-    img = r.render_np(0.0)
+    frame = r.render(0.0).block_until_ready()
     print(f"first frame (incl. compile): {time.time() - t0:.1f}s")
 
+    # ms/frame: the frame on the device, ending in block_until_ready; the
+    # copy of the image to the host is not part of it
     times = []
     for i in range(args.frames):
         if args.orbit:
             r.camera.rotate_y(0.05)
-        t0 = time.time()
-        img = r.render_np(i / 60.0)
-        times.append(time.time() - t0)
+        t0 = time.perf_counter()
+        frame = r.render(i / 60.0).block_until_ready()
+        times.append(time.perf_counter() - t0)
     ms = 1000.0 * float(np.median(times))
     print(f"ms/frame: {ms:.2f}   fps: {1000.0 / ms:.1f}")
+    img = np.clip(np.asarray(frame), 0.0, 1.0)
 
     write_png(args.out, img)
     print(f"wrote {args.out}")

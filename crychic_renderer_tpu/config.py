@@ -42,15 +42,17 @@ class RenderConfig:
     # alternate mip levels, so 4 probes = the cost of plain trilinear of
     # two textures while covering an 8:1 footprint (see sample_pair_aniso).
     # With dual_mip_rows each probe is a full trilinear from ONE gather:
-    # 2 dual probes measure equal to the legacy 4 alternating-mip probes
-    # against the 8-probe reference-quality evaluator (config 5: 40.4 vs
-    # 41.1 dB, fewer >2% pixels — experiments/aniso_quality.py) at HALF
-    # the row gathers; 4 dual probes are the high-quality option (44.2 dB)
+    # 2 dual probes match the legacy 4 alternating-mip probes in PSNR
+    # against the 8-probe reference-quality evaluator at HALF the row
+    # gathers; 4 dual probes are the high-quality option
     aniso_probes: int = 2
-    use_pallas: bool = True  # Pallas raster kernel (TPU) vs pure-XLA path
+    # rasterizer: True = the Pallas kernel (ops.raster_pallas, GPU), False
+    # = the XLA reference (ops.rasterizer.rasterize_binned), None = chosen
+    # by the backend (raster_pallas.kernel_for_backend)
+    use_pallas: bool | None = None
     # alpha-tested geometry (the reference's ALPHA_TEST shader variants,
     # Default.hlsl clip(diffuseAlbedo.a - 0.1), Shadows.hlsl:49-65).
-    # TPU design: small-N dense rasterization with k depth peels — the
+    # Design: small-N dense rasterization with k depth peels — the
     # nearest fragment whose sampled alpha passes wins (see
     # passes.frame.alpha-test section). Off unless the scene carries an
     # alpha layer.
@@ -58,7 +60,8 @@ class RenderConfig:
     alpha_peels: int = 2          # depth-peel iterations (clip recovery)
     alpha_clip: float = 0.1       # clip threshold (Default.hlsl:106)
     alpha_shadow_window: int = 512  # static light-space window per cascade
-    # run Pallas kernels in interpreter mode (CPU tests of the kernel path)
+    # run the kernel in the Pallas interpreter (CPU tests only; Renderer
+    # refuses it on the GPU)
     pallas_interpret: bool = False
     # debug views: None | "shadow_cascade3" (the reference's ShadowDebug.hlsl
     # quad) | "cascades" (the commented-out colorization, Default.hlsl:152)
@@ -79,8 +82,8 @@ class RenderConfig:
     # texture pool layout: dual-mip rows pack mip m AND its m+1 parent
     # quads in one 16-lane row, so a trilinear sample and EVERY aniso
     # probe pay ONE row gather instead of two, at 2x pool bytes
-    # (ops.sampling.PairPool docstring; quantified vs the 16-probe
-    # reference-quality evaluator in experiments/aniso_quality.py)
+    # (ops.sampling.PairPool docstring; its cost on the GPU is not yet
+    # measured, ROADMAP S5)
     dual_mip_rows: bool = True
     # performance knobs (defaults keep reference parity):
     # compute the cascade PCF factor at half resolution + bilinear upsample
@@ -89,16 +92,16 @@ class RenderConfig:
     ssao_scale: int = 2
     # Tile-compacted shading: per-pixel resolve gathers (records + texture
     # probes) are issued only for (8, 128) pixel tiles containing at least
-    # one covered pixel. The TPU gather engine pays ~9 ns per ISSUED row
-    # regardless of index locality, so sparsely covered frames (config 2:
-    # a skull on sky) waste most of their resolve cost on discarded sky
-    # rows; compaction removes them (passes.frame._resolve_compacted).
+    # one covered pixel, so sparsely covered frames (config 2: a skull on
+    # sky) do not spend their resolve on discarded sky rows
+    # (passes.frame._resolve_compacted; not yet measured on the GPU,
+    # ROADMAP S5).
     # None = full-screen resolve; Renderer autosizing sets this from the
     # exact occupied-tile bound with the same check_capacity guard as the
     # pair capacities.
     shade_tile_capacity: int = None
     # Tile-compacted SSAO occlusion: the 14 tap gathers are issued only
-    # for (8, 128) HALF-res tiles within the blur/upsample support of a
+    # for (8, 32) HALF-res tiles within the blur/upsample support of a
     # covered pixel — bit-exact on the full access map (skipped sky
     # tiles' true occlusion is exactly 1.0; see
     # passes.frame._ssao_occlusion_compacted). None = full-grid
@@ -118,12 +121,11 @@ class RenderConfig:
         return self.width // self.ssao_scale
 
     def fast_preset(self) -> "RenderConfig":
-        """The documented --fast performance preset (PERF.md): half-res
-        PCF factor + bilinear upsample, quarter-res SSAO, and trilinear
-        texturing (one dual-mip gather instead of per-probe anisotropy).
-        Quality vs parity is quantified in PERF.md (PSNR/SSIM, committed
-        fast golden in tests/goldens/). ONE definition — the viewer,
-        bench_all and the gallery all call this."""
+        """The documented --fast performance preset: half-res PCF factor
+        + bilinear upsample, quarter-res SSAO, and trilinear texturing
+        (one dual-mip gather instead of per-probe anisotropy). Its image
+        is pinned by committed fast goldens (tests/goldens/). ONE
+        definition — the viewer and the CLI both call this."""
         return dataclasses.replace(self, fast_shadow_factor=True,
                                    ssao_scale=4, anisotropy=1)
 

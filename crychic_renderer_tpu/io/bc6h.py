@@ -3,9 +3,10 @@
 Completes the DDS loader's BC family coverage: the reference's
 DDSTextureLoader maps DXGI BC6H_UF16/SF16 ids
 (/root/reference/Common/DDSTextureLoader.cpp:557-700) and uploads the
-compressed blocks for the GPU sampler to decode; the TPU build decodes at
-load time instead. BC6H carries HDR half-float RGB, so this decoder
-returns float32 (the exact half values), not uint8.
+compressed blocks for the GPU sampler to decode; this renderer samples
+from dense arrays, so it decodes at load time instead. BC6H carries HDR
+half-float RGB, so this decoder returns float32 (the exact half values),
+not uint8.
 
 Layout notes: a 128-bit block is a 2- or 5-bit mode id, a per-mode
 scatter of endpoint bits (the `_LAYOUTS` table below, stream order,
@@ -15,9 +16,8 @@ modes (bits 77..81), and 3-bit (two-region, from bit 82) or 4-bit
 dropped. Endpoints e0B/e1A/e1B are signed deltas against e0A in the
 transformed modes, absolute values in modes 10/11. The layout and
 arithmetic are verified per-bit against an independent decoder (Pillow's
-BCn C decoder) through amplified probe blocks — see
-experiments/bc6h_layout_probe.py — and fuzz-tested against it in
-tests/test_io.py.
+BCn C decoder) through amplified probe blocks, and fuzz-tested against it
+in tests/test_io.py.
 """
 from __future__ import annotations
 
@@ -265,7 +265,7 @@ def _decode_mode(bits, mode_value, signed, pillow_emulation=False):
     half-float bit patterns.
 
     pillow_emulation replicates two spec deviations of Pillow's BCn
-    decoder (measured in experiments/bc6h_layout_probe.py) so the
+    decoder (found by per-bit probing against it) so the
     verification harness can require EXACT agreement: Pillow skips the
     +32 rounding term of the palette interpolation, and in SF16
     transformed modes it adds the delta to the raw (non-sign-extended)

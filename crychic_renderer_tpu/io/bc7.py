@@ -3,13 +3,13 @@
 Completes the DDS loader's format coverage to the full BC1-BC7 family of
 the reference's DDSTextureLoader (which maps DX10 BC7 ids at
 /root/reference/Common/DDSTextureLoader.cpp:557-700 and uploads the
-compressed blocks for the GPU's sampler to decode — the TPU build decodes
-to RGBA8 at load time instead, the tpu-native equivalent).
+compressed blocks for the GPU's sampler to decode — this renderer samples
+from dense arrays and decodes to RGBA8 at load time instead).
 
 The partition and anchor tables below are public constants of the BC7
 spec; they were recovered programmatically from an independent
 battle-tested decoder (Pillow's BCn C decoder) rather than transcribed by
-hand — see experiments/bc7_table_recovery.py — and the full decoder is
+hand, and the full decoder is
 fuzz-verified bit-exact against that decoder over random blocks of every
 mode (tests/test_io.py).
 """

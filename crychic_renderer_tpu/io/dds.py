@@ -7,9 +7,9 @@ Re-implements the capability of the reference's DDSTextureLoader
 (/root/reference/Common/DDSTextureLoader.cpp: header parse :147, DX10
 header + arrays :1694-1809, format mapping :557, mip/subresource layout
 :897) for the format families the renderer consumes. Compressed textures
-are decoded to RGBA8 on the host at load time: TPUs sample from dense
-arrays, so decode-at-load is the tpu-native equivalent of the GPU's
-native BC sampler.
+are decoded to RGBA8 on the host at load time: the renderer samples from
+dense arrays with gathers, so decode-at-load takes the place of the
+hardware BC sampler.
 
 The pure-numpy decoders are vectorized over blocks; a C++ fast path
 (native/asset_pipeline) overrides `decode_bc1/2/3` when built.
@@ -145,7 +145,7 @@ def _decode_bc_alpha_block(raw8: np.ndarray) -> np.ndarray:
     Returns (N, 16) float32 values in [0, 255]. This is the 8-byte block
     the reference GPU decodes natively for BC3 alpha / BC4 red / BC5 red
     and green (DDSTextureLoader.cpp maps ATI1/ATI2 + DX10 BC4/BC5 ids at
-    :585-607 and never decodes — the TPU build decodes at load time).
+    :585-607 and never decodes — this renderer decodes at load time).
     """
     n = raw8.shape[0]
     a0 = raw8[:, 0].astype(np.float32)

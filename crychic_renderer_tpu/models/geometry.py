@@ -8,8 +8,8 @@ same index winding, same tangent derivations) so meshes are bit-comparable
 with the reference and golden tests stay meaningful.
 
 Unlike the reference's array-of-structs ``std::vector<Vertex>``, meshes here
-are numpy struct-of-arrays — the natural layout for feeding TPU kernels
-(positions (N,3) batch into (N,4)x(4,4) MXU matmuls without interleaving).
+are numpy struct-of-arrays — the natural layout for batched device math
+(positions (N,3) batch into (N,4)x(4,4) products without interleaving).
 """
 from __future__ import annotations
 

@@ -5,7 +5,7 @@ Replaces the reference's RenderItem / RenderLayer / instance-buffer model
 (/root/reference/CRYCHIC.h:23-54, FrameResource.h:7-15,
 CRYCHIC.cpp:2274-2436 scene construction). The D3D12 design uploads one
 InstanceData buffer per item per frame and issues one DrawIndexedInstanced
-per item; the TPU design pre-flattens every (item, instance) pair into
+per item; this design pre-flattens every (item, instance) pair into
 struct-of-arrays draw buffers once (static shapes!), and per-frame work is
 pure device math: transform vertices, mask culled instances, rasterize.
 """
@@ -106,9 +106,9 @@ class DrawBuffers:
 def flatten_items(items) -> DrawBuffers:
     """Expand (item, instance) pairs into flat static draw buffers.
 
-    Vertices are duplicated per instance — the TPU trade: HBM is cheap,
-    gathers are not, and duplicated vertices turn per-instance transform
-    into one dense batched multiply-add (ops.shading.rowmat).
+    Vertices are duplicated per instance — the trade: device memory is
+    cheap, gathers are not, and duplicated vertices turn per-instance
+    transform into one dense batched multiply-add (ops.shading.rowmat).
     """
     pos, nrm, tan, uv, vinst, idx = [], [], [], [], [], []
     worlds, texs, mats, item_ids, cullable, bc, be = [], [], [], [], [], [], []

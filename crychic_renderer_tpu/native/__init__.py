@@ -1,8 +1,9 @@
 """Native (C++) asset pipeline, bound via ctypes.
 
-Compiled on first use with g++ (cached as libcrychic_assets.so next to the
-source). Falls back to None if no toolchain is available — callers keep
-their pure-numpy paths (io/dds.py, io/mesh_txt.py, ops/ssao.py).
+Compiled from asset_pipeline.cpp on first use with g++ (cached as
+libcrychic_assets.so next to the source; the library is not committed).
+Falls back to None if no toolchain is available — callers keep their
+pure-numpy paths (io/dds.py, io/mesh_txt.py, ops/ssao.py).
 """
 from __future__ import annotations
 
@@ -25,10 +26,14 @@ def _build() -> bool:
         if (os.path.exists(_LIB)
                 and os.path.getmtime(_LIB) >= os.path.getmtime(_SRC)):
             return True
+        # build to a private name and rename: concurrent processes (test
+        # workers) never load a half-written library
+        tmp = f"{_LIB}.{os.getpid()}.tmp"
         subprocess.run(
             ["g++", "-O3", "-shared", "-fPIC", "-std=c++17", _SRC,
-             "-o", _LIB],
+             "-o", tmp],
             check=True, capture_output=True, timeout=120)
+        os.replace(tmp, _LIB)
         return True
     except Exception:
         return False

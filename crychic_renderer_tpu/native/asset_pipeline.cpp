@@ -1,7 +1,7 @@
 // Native asset pipeline: BC1/BC3 decode, Models/*.txt mesh parse, MSVC
 // rand texture. The reference's asset path is native C++ end-to-end
 // (Common/DDSTextureLoader.cpp, CRYCHIC::BuildSkullGeometry); this module
-// keeps the TPU renderer's host-side hot paths native too. Exposed via
+// keeps this renderer's host-side hot paths native too. Exposed via
 // ctypes (see native/__init__.py), with pure-numpy fallbacks.
 //
 // Build: g++ -O3 -march=native -shared -fPIC asset_pipeline.cpp -o libcrychic_assets.so

@@ -1,33 +1,27 @@
-"""Pallas TPU rasterization kernel.
+"""Tile rasterization kernel for NVIDIA Hopper (Pallas through Triton).
 
-The pure-XLA tiled rasterizer (rasterizer.rasterize_binned) expresses the
-right algorithm but XLA materializes the per-tile (tri-block x pixels)
-edge-function tensors to HBM, making it bandwidth-bound (~775 ms/frame at
-1080p measured). This kernel keeps the whole inner loop in VMEM:
+The plain rasterizer (rasterizer.rasterize_binned) vmaps every screen
+tile over a scan of ``bin_cap / tri_block`` blocks, so every tile pays for
+the busiest tile of the frame, and it builds a (TB, 3, TH, TW) edge tensor
+per block. This kernel does only the live (tile, triangle) pairs:
 
-- grid = one program per 8x128-pixel screen tile;
+- grid = one program per screen tile; the scheduler spreads the skewed
+  per-tile runs over the SMs;
 - per-tile triangle runs are CONTIGUOUS in the sorted pair array (the
-  binning sort's purpose), so the kernel streams its run with sliced,
-  double-buffered async DMA — no gathers;
-- per-tile (start, count) arrive via scalar prefetch, and the block loop
-  has a DYNAMIC trip count: empty tiles cost ~nothing (the D3D12
-  hardware's tile binning, recreated in software);
-- the z-buffer and triangle-id buffer live in VMEM/registers across the
-  loop; edge/depth evaluation is VPU broadcast FMA in a (TB tris x P
-  pixels) layout: each block's (16, TB) record transposes once in VMEM
-  and the 4 planes are (TB,1)x(1,P) FMAs. (Round 1-2 evaluated the
-  planes as one (16,TB)x(16,4P) MXU matmul at HIGHEST precision; with a
-  contraction dim of 16 on the 128-deep MXU that paid ~8x its useful
-  work — the FMA form measured 14 ms faster on the config-5 shadow
-  atlas and 3 ms on the main view, bit-identical tids, |dz| <= 6e-8;
-  experiments/fma_kernel_probe.py.)
+  binning sort's purpose), so each program reads its own (start, count)
+  and walks [start, start + count) in blocks of TB records with masked
+  loads, a dynamic trip count (empty tiles cost one load) and no gathers;
+- the z-buffer and winning-id buffer stay in registers across the loop;
+  edge and depth planes are (TB, 1) x (1, P) broadcast FMAs and each
+  block folds into the running minimum with one reduction over TB.
 
-Record layout (built by `build_records`, transposed so a TB-wide slice is
-one native (16, 128) f32 tile): rows 0-2 = edge A coeffs, 3-5 = B, 6-8 =
-TILE-LOCAL C (evaluated at the pair's tile origin, which keeps |E| small
-inside the tile for fp32 precision; top-left-rule bias pre-applied),
-9-11 = tile-local depth plane (zA, zB, zC_local), 12 = triangle id as f32,
-13-15 = padding.
+Record layout (built by `build_records`): one row-major (16,) f32 record
+per pair, so a block is one contiguous (TB, 16) load. Columns 0-2 = edge
+A coeffs, 3-5 = B, 6-8 = TILE-LOCAL C (evaluated at the pair's tile
+origin, which keeps |E| small inside the tile for f32 precision;
+top-left-rule bias pre-applied), 9-11 = tile-local depth plane (zA, zB,
+zC_local), 12 = triangle id as f32, 13-14 = tile-local atlas column guard
+[xlo, xhi), 15 = padding.
 
 Fill-rule note: vertex coordinates are snapped to 1/256-pixel fixed point
 in `setup` (like D3D's 8-bit subpixel rasterizer), so the top-left rule is
@@ -40,364 +34,227 @@ import functools
 import jax
 import jax.numpy as jnp
 from jax.experimental import pallas as pl
-from jax.experimental.pallas import tpu as pltpu
+from jax.experimental.pallas import triton as plgpu
 
 from . import rasterizer as rz
 
+# Tile and block sizes (powers of two), for the main view and the shadow
+# atlas alike: a block holds TRI_BLOCK x TILE_H*TILE_W f32 values per live
+# plane, which has to fit the SM's registers. Chosen by a sweep on an H100
+# (PERF.md): 256-512-pixel tiles with 8-16 records per block are within
+# noise of each other, and a 32-record block spills.
 TILE_H = 8
-TILE_W = 128
-TRI_BLOCK = 128
+TILE_W = 32
+TRI_BLOCK = 16
+NUM_WARPS = 4
+NUM_STAGES = 2
 SUBPIXEL = 256.0  # 1/256-pixel snapping (D3D subpixel grid)
 # exact epsilon: snapped edge values are multiples of 1/SUBPIXEL^2
 EDGE_EPS = 0.5 / (SUBPIXEL * SUBPIXEL)
-REC_ROWS = 16
+REC_COLS = 16
 ID_NONE = 3.0e7  # sentinel id (< 2^25 so float32-exact comparisons hold)
 
 
 snap_xy = rz.snap_xy  # canonical snap lives with setup_tri_verts
 
 
+def kernel_for_backend(platform: str) -> bool:
+    """Whether a JAX backend rasterizes with this kernel: yes on the GPU,
+    no on the CPU (the XLA reference, rasterizer.rasterize_binned)."""
+    if platform == "gpu":
+        return True
+    if platform == "cpu":
+        return False
+    raise ValueError(
+        f"no rasterizer for backend {platform!r}: the kernel compiles for "
+        f"the GPU and the XLA reference runs on the CPU")
+
+
 def tri_records(tris: rz.ScreenTris, xrange=None) -> jnp.ndarray:
-    """Per-TRIANGLE records (T, 16) f32 with global-origin planes and the
-    top-left bias folded into C (dense math, no gathers).
+    """Per-TRIANGLE source rows (T, 16) f32 for build_records: snapped
+    vertex xy (6), vertex z (3), id, column guard [xlo, xhi), zero pad.
 
     xrange: optional (xlo (T,), xhi (T,)) viewport columns — coverage is
     masked to pixel centers with xlo <= x < xhi. Used by the shadow ATLAS,
     where each cascade owns a column and triangles extending past their
     cascade's viewport must not bleed into the neighbor (the per-cascade
     path gets this for free from its own viewport bounds)."""
-    xy = snap_xy(tris.xy)
-    A, B, C, area2, top_left = rz._edge_coeffs(xy)
-    inv_a2 = 1.0 / jnp.where(area2 == 0, 1.0, area2)
-    zA = (A * tris.z * inv_a2[:, None]).sum(-1)
-    zB = (B * tris.z * inv_a2[:, None]).sum(-1)
-    zC = (C * tris.z * inv_a2[:, None]).sum(-1)
-    Cb = C - jnp.where(top_left, 0.0, EDGE_EPS)
-    ids = jnp.arange(A.shape[0], dtype=jnp.float32)
-    pad = jnp.zeros_like(ids)
+    T = tris.xy.shape[0]
+    ids = jnp.arange(T, dtype=jnp.float32)
     if xrange is None:
         xlo = jnp.full_like(ids, -3e7)
         xhi = jnp.full_like(ids, 3e7)
     else:
         xlo, xhi = xrange
-    return jnp.stack(
-        [A[:, 0], A[:, 1], A[:, 2],
-         B[:, 0], B[:, 1], B[:, 2],
-         Cb[:, 0], Cb[:, 1], Cb[:, 2],
-         zA, zB, zC, ids, xlo, xhi, pad], axis=-1)  # (T, 16)
+    return jnp.concatenate(
+        [snap_xy(tris.xy).reshape(T, 6), tris.z,
+         jnp.stack([ids, xlo, xhi], axis=-1),
+         jnp.zeros((T, 4), jnp.float32)], axis=-1)
 
 
-TILES_PER_PROG = 16  # amortizes per-program overhead + enlarges output DMA
+def _raster_kernel(start_ref, count_ref, rec_ref, depth_ref, *tid_ref,
+                   with_ids: bool, with_xrange: bool):
+    """One screen tile: walk its run of pair records in TRI_BLOCK blocks.
 
-
-def _raster_kernel(starts_ref, counts_ref, records_hbm, depth_ref,
-                   *rest, tile_h: int, with_ids: bool,
-                   with_xrange: bool = False, tpp: int = TILES_PER_PROG):
-    """Flat-streaming rasterizer (layouts: Mosaic tiles are (8, 128)).
-
-    Each program owns TILES_PER_PROG consecutive tiles. Their pair runs
-    are CONTIGUOUS in the sorted pair array, so the program streams its
-    whole range [starts[t0], end[t0+TPP-1]) as one double-buffered block
-    sequence — DMA latency is hidden across tile boundaries and boundary
-    blocks are processed once (the round-1 kernel restarted the stream per
-    tile: with ~60 pairs/tile the warmup DMA latency and the per-block
-    (TB, 4P) work were paid per TILE, dominating the pass). Each block's
-    plane evaluations are demultiplexed to the (<= a few) tiles it spans
-    by masked min into a (TILES_PER_PROG, P) VMEM accumulator; records are
-    tile-anchored so every row is valid on its OWN tile's local grid.
-    """
-    if with_ids:
-        tid_ref = rest[0]
-        acc_z, acc_id, rec_buf, sem = rest[1:]
-    else:
-        tid_ref = None
-        acc_id = None
-        acc_z, rec_buf, sem = rest
-
-    i = pl.program_id(0)
-    P = tile_h * TILE_W
+    Exact-z tie rule: the minimum id within a block, the earliest block
+    across blocks. These coincide: the stable tile sort keeps each run's
+    triangle ids ASCENDING, so the earliest block holding the min z also
+    holds the smallest tied id — making the winner independent of where
+    band/interleaved binning shifts the run (sharded tid == single-card
+    tid even on coplanar geometry)."""
+    P = TILE_H * TILE_W
     pidx = jax.lax.broadcasted_iota(jnp.int32, (1, P), 1)
     px = (pidx % TILE_W).astype(jnp.float32) + 0.5
     py = (pidx // TILE_W).astype(jnp.float32) + 0.5
     sub = jax.lax.broadcasted_iota(jnp.int32, (TRI_BLOCK, 1), 0)
-
-    base = i * tpp
-    s0 = starts_ref[base]
-    pend = (starts_ref[base + tpp - 1]
-            + counts_ref[base + tpp - 1])
-    first_blk = s0 // TRI_BLOCK
-    nblk = jax.lax.select(pend > first_blk * TRI_BLOCK,
-                          pl.cdiv(pend - first_blk * TRI_BLOCK, TRI_BLOCK),
-                          0)
-
-    acc_z[...] = jnp.full((tpp, P), 1.0, jnp.float32)
-    if with_ids:
-        acc_id[...] = jnp.full((tpp, P), ID_NONE, jnp.float32)
-
-    def dma(slot, b):
-        return pltpu.make_async_copy(
-            records_hbm.at[:, first_blk + b, :],
-            rec_buf.at[slot],
-            sem.at[slot],
-        )
-
-    @pl.when(nblk > 0)
-    def _():
-        dma(0, 0).start()
+    start = start_ref[0]
+    count = count_ref[0]
 
     def body(b, carry):
-        slot = jax.lax.rem(b, 2)
-
-        @pl.when(b + 1 < nblk)
-        def _():
-            dma(jax.lax.rem(b + 1, 2), b + 1).start()
-
-        dma(slot, b).wait()
-        recT = rec_buf[slot].T  # (TRI_BLOCK, 16); one in-VMEM transpose
-
-        def col(k):
-            return recT[:, k:k + 1]  # (TB, 1)
-
-        # all 3 edge functions + the depth plane as (TB,1)x(1,P) broadcast
-        # FMAs on the VPU (see module doc: this replaced a K=16 MXU
-        # matmul). f32 throughout — ids/planes carry exact f32 values, so
-        # the round-2 MXU-bf16 id-rounding hazard no longer exists.
-        E0 = col(0) * px + col(3) * py + col(6)
-        E1 = col(1) * px + col(4) * py + col(7)
-        E2 = col(2) * px + col(5) * py + col(8)
-        cov = jnp.minimum(jnp.minimum(E0, E1), E2) >= 0.0
+        z_best, id_best = carry
+        live = b * TRI_BLOCK + sub < count  # (TB, 1)
+        rec = plgpu.load(rec_ref.at[pl.ds(start + b * TRI_BLOCK, TRI_BLOCK),
+                                    :],
+                         mask=jnp.broadcast_to(live, (TRI_BLOCK, REC_COLS)),
+                         other=0.0)
+        col = jnp.split(rec, REC_COLS, axis=1)  # 16 x (TB, 1)
+        E0 = col[0] * px + col[3] * py + col[6]
+        E1 = col[1] * px + col[4] * py + col[7]
+        E2 = col[2] * px + col[5] * py + col[8]
+        cov = (jnp.minimum(jnp.minimum(E0, E1), E2) >= 0.0) & live
         if with_xrange:
             # atlas column guard: pixel center x within [xlo, xhi)
-            cov = cov & (px >= col(13)) & (px < col(14))
-        z = col(9) * px + col(10) * py + col(11)
+            cov = cov & (px >= col[13]) & (px < col[14])
+        z = col[9] * px + col[10] * py + col[11]
         z = jnp.where(cov & (z >= 0.0) & (z <= 1.0), z, jnp.inf)
+        zb = jnp.min(z, axis=0, keepdims=True)  # (1, P)
+        better = zb < z_best
+        z_best = jnp.where(better, zb, z_best)
         if with_ids:
-            ids_col = col(12)  # (TB, 1)
+            idb = jnp.min(jnp.where(z == zb, col[12], jnp.inf), axis=0,
+                          keepdims=True)
+            id_best = jnp.where(better, idb, id_best)
+        return z_best, id_best
 
-        # demux the block's rows to the tiles they belong to
-        g = (first_blk + b) * TRI_BLOCK + sub  # (TB, 1) global pair index
-        blo = (first_blk + b) * TRI_BLOCK
-        bhi = blo + TRI_BLOCK
-        for t in range(tpp):
-            s_t = starts_ref[base + t]
-            c_t = counts_ref[base + t]
-            e_t = s_t + c_t
-
-            @pl.when((s_t < bhi) & (e_t > blo) & (c_t > 0))
-            def _(t=t, s_t=s_t, e_t=e_t):
-                m = (g >= s_t) & (g < e_t)
-                zt = jnp.where(m, z, jnp.inf)
-                zb = jnp.min(zt, axis=0, keepdims=True)  # (1, P)
-                prev = acc_z[t:t + 1, :]
-                better = zb < prev
-                acc_z[t:t + 1, :] = jnp.where(better, zb, prev)
-                if with_ids:
-                    ids = jnp.where(zt == zb, ids_col, jnp.inf)
-                    idb = jnp.min(ids, axis=0, keepdims=True)
-                    prev_id = acc_id[t:t + 1, :]
-                    # Exact-z tie rule: min id within a block, earliest
-                    # block across blocks. These coincide: the stable
-                    # tile sort keeps each run's pair ids ASCENDING, so
-                    # the earliest block holding the min z also holds the
-                    # smallest tied id — making the winner independent of
-                    # where band/interleaved binning shifts the run's
-                    # TRI_BLOCK boundaries (sharded tid == single-chip
-                    # tid even on coplanar geometry).
-                    acc_id[t:t + 1, :] = jnp.where(better, idb, prev_id)
-
-        return carry
-
-    jax.lax.fori_loop(0, nblk, body, 0)
-
-    depth_ref[...] = acc_z[...]
+    init = (jnp.full((1, P), 1.0, jnp.float32),
+            jnp.full((1, P), ID_NONE, jnp.float32))
+    z_best, id_best = jax.lax.fori_loop(0, pl.cdiv(count, TRI_BLOCK), body,
+                                        init)
+    depth_ref[...] = z_best.reshape(TILE_H, TILE_W)
     if with_ids:
-        idv = acc_id[...]
-        tid_ref[...] = jnp.where(idv < ID_NONE, idv, -1.0).astype(jnp.int32)
+        tid_ref[0][...] = jnp.where(id_best < ID_NONE, id_best,
+                                    -1.0).astype(jnp.int32).reshape(
+                                        TILE_H, TILE_W)
 
 
 def build_records(tris: rz.ScreenTris, bins: rz.Bins, ntx: int,
-                  num_tiles: int, tile_h: int = TILE_H, xrange=None,
-                  row_unperm=None):
-    """Tile-anchored pair records for the kernel, UNPADDED.
-
-    Tile runs are used exactly where the binning sort left them: the
-    kernel DMAs the 128-aligned block window covering [start, start+count)
-    and masks rows outside the run (neighbor tiles' records ride along in
-    the boundary blocks, harmlessly masked). This removes the per-tile
-    block padding of round 1, which doubled the record array (num_tiles x
-    TRI_BLOCK pad slots) and with it the gather/cumsum cost of the build.
-
-    Re-anchors each record's C and zC at its tile's pixel origin (fp
-    precision: |E| stays small inside the tile) and lays the result out as
-    (16, NB, TRI_BLOCK) so a block slice is one native (16, 128) f32 tile.
-    """
-    trecs = tri_records(tris, xrange)  # (T, 16)
-    # ONE row-gather per pair: gather cost is per ROW, so a single 16-wide
-    # row fetch beats 13 scalar gathers 13x.
-    rec = trecs[bins.order]  # (P, 16)
+                  num_tiles: int, xrange=None, row_unperm=None):
+    """Tile-anchored pair records (P + TRI_BLOCK, 16) for the kernel (the
+    layout is in the module doc): edge and depth planes and the column
+    guard evaluated at each pair's tile origin. The TRI_BLOCK zero rows
+    at the end keep every block window of a run inside the array (its
+    masked rows are never used)."""
+    trecs = tri_records(tris, xrange)
+    src = trecs[bins.order]  # (P, 16): one 64-byte row gather per pair
     tile_of = jnp.minimum(bins.sorted_tile, num_tiles - 1)
 
-    # re-anchor edge/depth planes at the tile origin (dense). With
-    # row_unperm=(n_dev, rows_per_dev), sorted_tile holds OWNER-MAJOR
+    # With row_unperm=(n_dev, rows_per_dev), sorted_tile holds OWNER-MAJOR
     # permuted keys (interleaved binning): recover the true tile row
     # analytically — key_row = owner * rpd + ty // n_dev.
     x0 = ((tile_of % ntx) * TILE_W).astype(jnp.float32)[:, None]
     if row_unperm is None:
-        y0 = ((tile_of // ntx) * tile_h).astype(jnp.float32)[:, None]
+        y0 = ((tile_of // ntx) * TILE_H).astype(jnp.float32)[:, None]
     else:
         n_dev, rpd = row_unperm
         kr = tile_of // ntx
         true_ty = (kr % rpd) * n_dev + kr // rpd
-        y0 = (true_ty * tile_h).astype(jnp.float32)[:, None]
-    A, B = rec[:, 0:3], rec[:, 3:6]
-    C = rec[:, 6:9] + A * x0 + B * y0
-    zC = rec[:, 11:12] + rec[:, 9:10] * x0 + rec[:, 10:11] * y0
-    xr = rec[:, 13:15] - x0  # xlo/xhi re-anchored at the tile origin
-    rec = jnp.concatenate([A, B, C, rec[:, 9:11], zC, rec[:, 12:13], xr,
-                           jnp.zeros_like(rec[:, :1])], axis=-1)
-
-    P = rec.shape[0]
-    assert P % TRI_BLOCK == 0, "pair_capacity must be a TRI_BLOCK multiple"
-    return rec.T.reshape(16, P // TRI_BLOCK, TRI_BLOCK)
+        y0 = (true_ty * TILE_H).astype(jnp.float32)[:, None]
+    # Vertices relative to the tile origin: exact for snapped coordinates,
+    # so the edge functions and the top-left bias below are exact inside
+    # the tile however far the tile is from the screen origin.
+    xy = jnp.stack([src[:, 0:6:2] - x0, src[:, 1:6:2] - y0], axis=-1)
+    z = src[:, 6:9]
+    A, B, C, area2, top_left = rz._edge_coeffs(xy)
+    inv_a2 = 1.0 / jnp.where(area2 == 0, 1.0, area2)
+    zA = (A * z * inv_a2[:, None]).sum(-1)
+    zB = (B * z * inv_a2[:, None]).sum(-1)
+    # depth plane anchored at vertex 0: an edge-on triangle's slopes are
+    # large, and only the short vertex-to-tile offset multiplies them
+    zC = z[:, 0] - zA * xy[:, 0, 0] - zB * xy[:, 0, 1]
+    C = C - jnp.where(top_left, 0.0, EDGE_EPS)
+    rec = jnp.concatenate(
+        [A, B, C, jnp.stack([zA, zB, zC, src[:, 9]], axis=-1),
+         src[:, 10:12] - x0, jnp.zeros_like(x0)], axis=-1)
+    return jnp.pad(rec, ((0, TRI_BLOCK), (0, 0)))
 
 
 def rasterize_pallas(tris: rz.ScreenTris, width: int, height: int,
                      pair_capacity: int, interpret: bool = False,
-                     tile_h: int = TILE_H, with_ids: bool = True,
-                     with_stats: bool = False, xrange=None,
-                     tile_row_offset=None, num_tile_rows: int = None,
-                     tiles_per_prog: int = TILES_PER_PROG,
-                     row_stride=None):
-    """Full pipeline: bin (XLA) + raster (Pallas kernel).
+                     with_ids: bool = True, xrange=None, row_stride=None):
+    """Full pipeline: bin (XLA) + raster (the kernel).
 
     Triangle setup must use the same snapped coordinates the records use,
     so callers should pass `tris` from rz.setup_triangles unchanged — the
     snapping happens inside build_records (binning bboxes stay
     conservative either way).
 
-    Contiguous-band mode (kept for exactness tests and single-band
-    probes — the production sharded path uses the interleaved mode
-    below): when ``tile_row_offset``
-    (traced scalar ok) and ``num_tile_rows`` (static) are given, binning
-    and record anchoring still run over the FULL (width x height) screen,
-    but the kernel grid covers only tile rows [tile_row_offset,
-    tile_row_offset + num_tile_rows) and the output holds just those rows.
-    Because every record keeps its GLOBAL tile anchor, the band's
-    edge-function/depth fp math is bit-identical to the single-chip
-    render — no silhouette flips at band seams.
+    Interleaved mode (``row_stride=(n_dev, owner)``, what parallel.sharded
+    uses): binning keeps only the owner's tile rows, with owner-major
+    permuted keys (see rz.bin_triangles), so the owner's tiles are one
+    contiguous key range. Every record keeps its GLOBAL tile anchor, so
+    the f32 math is bit-identical to the single-card render. Output row
+    s*TILE_H + r is TRUE tile row s*n_dev + owner.
 
-    Interleaved mode (``row_stride``): see the block above; the sharded
-    path uses this (balanced pair load) rather than contiguous bands.
+    ``interpret`` runs the kernel in the Pallas interpreter (CPU tests).
 
-    Returns (depth (H, W) f32, tid (H, W) i32[, stats]); stats (when
-    with_stats) is a dict of scalars: pairs_valid, pairs_overflowed (pairs
-    beyond pair_capacity were silently dropped), max_tile_count.
+    Returns (depth (H, W) f32, tid (H, W) i32 or None); pairs beyond
+    pair_capacity are dropped, which Renderer's capacity checks prevent.
     """
-    tpp = tiles_per_prog
     ntx = -(-width // TILE_W)
-    nty = -(-height // tile_h)
-    num_tiles = ntx * nty
-
+    nty = -(-height // TILE_H)
+    bins = rz.bin_triangles(tris, width, height, pair_capacity,
+                            tile_h=TILE_H, tile_w=TILE_W,
+                            row_stride=row_stride)
     if row_stride is not None:
-        # interleaved mode: owner-major permuted keys (see
-        # rz.bin_triangles); the owner's tiles are one contiguous key
-        # range, so the streaming kernel runs unchanged. Output row
-        # s*tile_h + r is TRUE tile row s*n_dev + owner.
         n_dev, owner = row_stride
         rpd = -(-nty // n_dev)
-        num_keys = rpd * n_dev * ntx
-        bins = rz.bin_triangles(tris, width, height, pair_capacity,
-                                tile_h=tile_h, tile_w=TILE_W,
-                                row_stride=row_stride)
-        records = build_records(tris, bins, ntx, num_keys, tile_h, xrange,
+        records = build_records(tris, bins, ntx, rpd * n_dev * ntx, xrange,
                                 row_unperm=(n_dev, rpd))
-        grid_tiles = rpd * ntx
-        off = jnp.asarray(owner, jnp.int32) * grid_tiles
-        starts_g = jax.lax.dynamic_slice_in_dim(bins.starts, off,
-                                                grid_tiles)
-        counts_g = jax.lax.dynamic_slice_in_dim(bins.counts, off,
-                                                grid_tiles)
+        out_rows = rpd
+        off = jnp.asarray(owner, jnp.int32) * (rpd * ntx)
     else:
-        bins = rz.bin_triangles(tris, width, height, pair_capacity,
-                                tile_h=tile_h, tile_w=TILE_W)
-        records = build_records(tris, bins, ntx, num_tiles, tile_h, xrange)
+        records = build_records(tris, bins, ntx, ntx * nty, xrange)
+        out_rows = nty
+        off = jnp.int32(0)
+    grid_tiles = out_rows * ntx
+    starts = jax.lax.dynamic_slice_in_dim(bins.starts, off, grid_tiles)
+    counts = jax.lax.dynamic_slice_in_dim(bins.counts, off, grid_tiles)
 
-        if num_tile_rows is None:
-            grid_tiles = num_tiles
-            starts_g, counts_g = bins.starts, bins.counts
-        else:
-            grid_tiles = num_tile_rows * ntx
-            off = jnp.asarray(tile_row_offset, jnp.int32) * ntx
-            starts_g = jax.lax.dynamic_slice_in_dim(bins.starts, off,
-                                                    grid_tiles)
-            counts_g = jax.lax.dynamic_slice_in_dim(bins.counts, off,
-                                                    grid_tiles)
-
-    # pad the tile tables to a multiple of tiles_per_prog. Pad starts
-    # carry the total end-of-pairs position so a program's stream range
-    # [starts[t0], starts[tN]+counts[tN]) stays correct when its tail tiles
-    # are padding (counts 0).
-    num_progs = -(-grid_tiles // tpp)
-    pad_tiles = num_progs * tpp - grid_tiles
-    if pad_tiles:
-        starts = jnp.concatenate(
-            [starts_g, jnp.full((pad_tiles,), bins.num_valid, jnp.int32)])
-        counts = jnp.pad(counts_g, (0, pad_tiles))
-    else:
-        starts = starts_g
-        counts = counts_g
-
-    kernel = functools.partial(_raster_kernel, tile_h=tile_h,
-                               with_ids=with_ids,
-                               with_xrange=xrange is not None, tpp=tpp)
-    P = tile_h * TILE_W
-    out_spec = pl.BlockSpec((tpp, P), lambda i, *_: (i, 0))
-    out_shape = [jax.ShapeDtypeStruct((num_progs * tpp, P),
-                                      jnp.float32)]
-    out_specs = [out_spec]
+    kernel = functools.partial(_raster_kernel, with_ids=with_ids,
+                               with_xrange=xrange is not None)
+    img_shape = (out_rows * TILE_H, ntx * TILE_W)
+    tile_spec = pl.BlockSpec((TILE_H, TILE_W), lambda r, c: (r, c))
+    scalar_spec = pl.BlockSpec((1,), lambda r, c: (r * ntx + c,))
+    out_shape = [jax.ShapeDtypeStruct(img_shape, jnp.float32)]
     if with_ids:
-        out_shape.append(jax.ShapeDtypeStruct(
-            (num_progs * tpp, P), jnp.int32))
-        out_specs.append(out_spec)
-    scratch = [pltpu.VMEM((tpp, P), jnp.float32)]
-    if with_ids:
-        scratch.append(pltpu.VMEM((tpp, P), jnp.float32))
-    scratch += [
-        pltpu.VMEM((2, REC_ROWS, TRI_BLOCK), jnp.float32),
-        pltpu.SemaphoreType.DMA((2,)),
-    ]
-    grid_spec = pltpu.PrefetchScalarGridSpec(
-        num_scalar_prefetch=2,
-        grid=(num_progs,),
-        in_specs=[pl.BlockSpec(memory_space=pltpu.HBM)],
-        out_specs=out_specs,
-        scratch_shapes=scratch,
-    )
+        out_shape.append(jax.ShapeDtypeStruct(img_shape, jnp.int32))
     outs = pl.pallas_call(
         kernel,
-        grid_spec=grid_spec,
+        grid=(out_rows, ntx),
+        in_specs=[scalar_spec, scalar_spec,
+                  pl.BlockSpec(records.shape, lambda r, c: (0, 0))],
+        out_specs=[tile_spec] * len(out_shape),
         out_shape=out_shape,
+        backend="triton",
+        compiler_params=plgpu.CompilerParams(num_warps=NUM_WARPS,
+                                             num_stages=NUM_STAGES),
         interpret=interpret,
+        name="raster_tiles",
     )(starts, counts, records)
-    depth_flat = outs[0][:grid_tiles]
-    tid_flat = outs[1][:grid_tiles] if with_ids else None
-    if row_stride is not None:
-        out_rows = grid_tiles // ntx
-    else:
-        out_rows = nty if num_tile_rows is None else num_tile_rows
 
-    def assemble(flat):
-        img = flat.reshape(out_rows, ntx, tile_h, TILE_W)
-        img = img.transpose(0, 2, 1, 3).reshape(out_rows * tile_h,
-                                                ntx * TILE_W)
-        if num_tile_rows is None and row_stride is None:
+    def crop(img):
+        if row_stride is None:
             img = img[:height, :]
         return img[:, :width]
 
-    out = (assemble(depth_flat), (assemble(tid_flat) if with_ids else None))
-    if with_stats:
-        stats = dict(pairs_valid=bins.num_valid,
-                     pairs_overflowed=bins.overflowed,
-                     max_tile_count=bins.counts.max())
-        return out + (stats,)
-    return out
+    return crop(outs[0]), crop(outs[1]) if with_ids else None

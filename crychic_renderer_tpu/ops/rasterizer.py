@@ -2,13 +2,13 @@
 
 This module replaces the D3D12 rasterization hardware the reference gets
 for free from ``DrawIndexedInstanced`` (/root/reference/CRYCHIC.cpp:2473):
-vertex transform happens upstream as batched MXU matmuls; here we bin
+vertex transform happens upstream as batched matrix products; here we bin
 screen-space triangles to pixel tiles and run a coverage + depth test per
 tile, producing a *visibility buffer* (per-pixel depth + winning triangle
 id). Attribute interpolation and shading happen in later passes by
-gathering the winning triangle's vertex data — the TPU-idiomatic split,
-because it keeps rasterization dense (VPU/MXU friendly) and pays exactly
-one gather per pixel for attributes.
+gathering the winning triangle's vertex data — a split that keeps
+rasterization dense and pays exactly one gather per pixel for
+attributes.
 
 D3D11/12 rasterization rules replicated:
 - viewport transform ``x = (ndc.x*0.5+0.5)*W``, ``y = (0.5-ndc.y*0.5)*H``,
@@ -21,8 +21,8 @@ D3D11/12 rasterization rules replicated:
 Binning is exact and fully static-shaped: per-triangle tile-bbox counts
 -> exclusive cumsum -> fixed-capacity pair expansion via searchsorted ->
 sort pairs by tile -> contiguous per-tile runs (start, count). The same
-binning feeds both the pure-XLA rasterizer here and the Pallas kernel in
-``raster_pallas.py``.
+binning feeds both the pure-XLA rasterizer here (the plain reference, and
+the CPU path) and the GPU kernel in ``raster_pallas.py``.
 """
 from __future__ import annotations
 
@@ -31,7 +31,8 @@ from typing import NamedTuple
 import jax
 import jax.numpy as jnp
 
-# Tile size: aligned to the TPU vector lane layout (8, 128) f32.
+# Tile size of this XLA reference path (the kernel in raster_pallas.py
+# bins at its own tile).
 TILE_H = 32
 TILE_W = 128
 
@@ -96,10 +97,9 @@ def setup_tri_verts(v: jnp.ndarray, valid_in, width: int, height: int,
     (T, 3, 4) — the entry point for pre-clipped geometry.
 
     Vertex xy snaps to the 1/256 subpixel grid HERE so every rasterization
-    path (bruteforce, binned XLA, Pallas kernel, bands, capacity probes)
-    evaluates identical edge functions — kernel-vs-XLA winners then agree
-    except at true shared-edge ties (measured 48% near-tie tid flips on
-    sub-pixel triangles before alignment)."""
+    path (bruteforce, binned XLA, raster kernel, bands, capacity probes)
+    bins and tests the same coordinates — kernel-vs-XLA winners then
+    agree except at true shared-edge ties."""
     xy, z, inv_w, in_front = viewport_transform(v, width, height)
     xy = snap_xy(xy)
     valid = in_front.all(axis=-1)
@@ -142,7 +142,7 @@ def _tile_bbox(tris: ScreenTris, width: int, height: int,
     # subpixel cull: a triangle whose bbox straddles no pixel CENTER can
     # produce no coverage. Far shadow cascades shrink whole meshes to a few
     # texels — without this, tens of thousands of zero-coverage triangles
-    # pile into single tiles (measured 27k in one atlas tile). The 1/256
+    # pile into single tiles of the atlas. The 1/256
     # margin keeps the test conservative under the kernel's subpixel snap.
     eps = 1.0 / 256.0
     no_center = (jnp.floor(xmax - 0.5 + eps) < jnp.ceil(xmin - 0.5 - eps)) \
@@ -220,8 +220,8 @@ def bin_triangles(tris: ScreenTris, width: int, height: int,
 
     pair_idx = jnp.arange(pair_capacity, dtype=jnp.int32)
     # tri_of_pair = searchsorted(offsets, pair_idx, 'right') - 1, computed
-    # as scatter-add + cumsum (XLA's searchsorted lowers poorly on TPU for
-    # hundreds of thousands of queries)
+    # as scatter-add + cumsum (one pass over the pairs instead of a
+    # binary search per pair)
     marks = jnp.zeros(pair_capacity, jnp.int32).at[offsets].add(
         1, mode="drop")
     tri_of_pair = jnp.cumsum(marks) - 1
@@ -241,9 +241,8 @@ def bin_triangles(tris: ScreenTris, width: int, height: int,
     else:
         tile_id = jnp.where(valid_pair, ty * ntx + tx, num_keys)
 
-    # ONE stable sort carrying tri_of_pair as a value — argsort + two
-    # P-row gathers by sort_order measured ~5 ms slower on the config-5
-    # shadow atlas (experiments/bin_decomp_probe.py). Stability keeps
+    # ONE stable sort carrying tri_of_pair as a value (instead of argsort
+    # + two P-row gathers by sort order). Stability keeps
     # each tile run's pair (and hence tri) ids ascending, which the
     # kernel's exact-z tie rule relies on.
     sorted_tile, order = jax.lax.sort(
@@ -389,10 +388,12 @@ def rasterize_binned(tris: ScreenTris, bins: Bins, width: int, height: int,
 
     A, B, C, area2, top_left = _edge_coeffs(tris.xy)
     inv_a2 = 1.0 / jnp.where(area2 == 0, 1.0, area2)
-    # Fold z/area2 into the edge coefficients: z(p) = sum_i E_i(p) * zi/a2
+    # depth plane z(p) = z0 + zA (px - x0) + zB (py - y0), anchored at
+    # vertex 0: an edge-on triangle's slopes are large, and a plane
+    # constant at the screen origin would cancel against them
     zA = (A * tris.z * inv_a2[:, None]).sum(-1)
     zB = (B * tris.z * inv_a2[:, None]).sum(-1)
-    zC = (C * tris.z * inv_a2[:, None]).sum(-1)
+    zv = jnp.stack([tris.z[:, 0], tris.xy[:, 0, 0], tris.xy[:, 0, 1]], -1)
 
     if row_stride is not None:
         n_dev, owner = row_stride
@@ -453,9 +454,9 @@ def rasterize_binned(tris: ScreenTris, bins: Bins, width: int, height: int,
                  + Cb[:, :, None, None])
             inside = (E > 0) | ((E == 0) & tlb[:, :, None, None])
             cov = inside.all(axis=1) & vb[:, None, None]
-            zpix = (zA[ids][:, None, None] * px[None]
-                    + zB[ids][:, None, None] * py[None]
-                    + zC[ids][:, None, None])
+            z0, vx, vy = (v[:, None, None] for v in zv[ids].T)
+            zpix = (z0 + zA[ids][:, None, None] * (px[None] - vx)
+                    + zB[ids][:, None, None] * (py[None] - vy))
             zpix = jnp.where(cov & (zpix >= 0.0) & (zpix <= 1.0), zpix, jnp.inf)
             zmin = zpix.min(axis=0)
             better = zmin < depth

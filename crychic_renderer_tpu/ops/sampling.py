@@ -3,8 +3,8 @@ dual-mip rows, anisotropic probe schedules, and cubemap sampling.
 
 Replaces the D3D12 sampler hardware used by the reference's shaders
 (gsamAnisotropicWrap / gsamLinearClamp / gsamLinearWrap, static samplers
-at /root/reference/CRYCHIC.cpp:2601). TPUs sample via gathers, and gather
-cost is per ROW, so the pool is shaped to minimize row count: one row
+at /root/reference/CRYCHIC.cpp:2601). Sampling here is gathers, and the
+pool is shaped to minimize gathered row count: one row
 carries the 2x2 bilinear quads of BOTH maps a G-buffer pixel samples
 (PairPool), and optionally of both mip levels a trilinear blend needs
 (dual-mip rows) — one gather per bilinear/trilinear sample, one per
@@ -12,8 +12,8 @@ anisotropic probe.
 
 Filtering parity: D3D12_FILTER_ANISOTROPIC (MaxAnisotropy=8) is
 approximated by a probe schedule whose quality is QUANTIFIED against the
-16-gather reference evaluation (sample_pair_aniso_ref,
-experiments/aniso_quality.py); deviations concentrate at grazing angles.
+16-gather reference evaluation (sample_pair_aniso_ref); deviations
+concentrate at grazing angles.
 """
 from __future__ import annotations
 
@@ -25,7 +25,7 @@ import jax.numpy as jnp
 # Two-class pool geometry: "big" textures (material maps) are stored at
 # POOL_SIZE^2 with full mip chains; "small" textures (the 64x64 animation
 # frames) at POOL_SIZE_SMALL^2 — otherwise upsampling them to 512^2 blows
-# the pool past cache (measured: texture gathers 3x slower). Class
+# the pool's size and cache footprint. Class
 # membership is by index (big textures first), so per-pixel addressing
 # stays fully ANALYTIC: a compare + two shift formulas, zero metadata
 # gathers.
@@ -75,9 +75,8 @@ def unpack_rgba8(packed: jnp.ndarray) -> jnp.ndarray:
 # SAME uv and lod (GeometryPass.hlsl:52-55), so the two textures are packed
 # side by side in one row: row(pair, mip, y, x) = [diffuse 2x2 quad | normal
 # 2x2 quad], 8 uint32 = 32 bytes. One gather fetches a bilinear footprint of
-# BOTH maps; trilinear is two (mip m, m+1). Measured on the TPU: gathers
-# cost ~4.3 ns per ROW for 16-256 byte rows, so halving row count halves
-# texture-fetch cost. Pairs are deduplicated by (diffuse, normal) texture
+# BOTH maps; trilinear is two (mip m, m+1): half the gathered rows of
+# separate maps. Pairs are deduplicated by (diffuse, normal) texture
 # ids; animated materials get one (small-class) pair per animation frame.
 
 PAIR_ROW = 8       # u32 lanes per single-mip pair row
@@ -345,14 +344,14 @@ def sample_pair_aniso(pool: PairPool, pair: jnp.ndarray, uv: jnp.ndarray,
     M = min(ceil(p_max / p_min), max_aniso) probes spaced along the
     major-axis uv derivative, at lod = log2(p_max / M).
 
-    TPU cost shaping: each probe is ONE row gather (gathers are the whole
+    Cost shaping: each probe is ONE row gather (gathers are the whole
     cost of texturing here), so instead of 2 gathers per probe for the
     trilinear mip blend, a static loop of ``probes`` probes ALTERNATES
     between mip m0 and m1 with weights (1-f) / f — the mip blend and the
     line footprint are sampled jointly (D3D12 leaves the probe schedule
     implementation-defined). When the footprint is isotropic, consecutive
     probes collapse to the same uv and the result is EXACT trilinear.
-    Active-probe masking is dense (TPU control flow).
+    Active-probe masking is dense (no data-dependent control flow).
     """
     lx2 = (dx * dx).sum(-1)
     ly2 = (dy * dy).sum(-1)
@@ -430,7 +429,7 @@ def sample_pair_aniso_ref(pool: PairPool, pair: jnp.ndarray,
     exact two-gather trilinear — the quality bar D3D12_FILTER_ANISOTROPIC
     hardware meets or beats. 2*max_aniso row gathers per pixel: far too
     slow for the frame path; used by tests and experiments to QUANTIFY
-    the production probe schedules (VERDICT r3 missing #3)."""
+    the production probe schedules."""
     lx2 = (dx * dx).sum(-1)
     ly2 = (dy * dy).sum(-1)
     major_is_x = lx2 >= ly2
@@ -531,10 +530,10 @@ SKY_GROUND = (0.35, 0.33, 0.30)
 def procedural_sky_color(direction: jnp.ndarray) -> jnp.ndarray:
     """Analytic evaluation of the procedural sky (the same function
     procedural_sky_cubemap discretizes into faces): direction (..., 3)
-    -> (..., 3) color. ZERO gathers — on TPU a cubemap fetch costs one
-    ~10-20ns row gather per pixel (~25 ms/frame at 1080p), while this is
-    pure VPU math, so the frame path evaluates the substitute sky directly
-    and keeps sample_cubemap for file-loaded cubemaps."""
+    -> (..., 3) color. ZERO gathers — a cubemap fetch costs one row
+    gather per pixel while this is pure arithmetic, so the frame path
+    evaluates the substitute sky directly and keeps sample_cubemap for
+    file-loaded cubemaps."""
     d = direction / jnp.maximum(
         jnp.sqrt((direction ** 2).sum(-1, keepdims=True)), 1e-20)
     h = d[..., 1:2]

@@ -25,12 +25,11 @@ PI = 3.1415926
 
 def rowmat(v, M):
     """Row-vector transform ``v @ M`` (optionally batched over leading
-    dims of either side) as elementwise multiply + sum on the VPU.
+    dims of either side) as elementwise multiply + sum.
 
-    The MXU's DEFAULT f32 matmul is one-pass bf16 — a correctness bug for
-    geometry (see PERF.md "Precision on the MXU") — and its exact mode is
-    6-pass. For K=3/4 transform chains the VPU evaluates exact f32 and is
-    faster than either (vertex stage measured ~38 -> ~11 ms true)."""
+    Exact f32 by construction: no matrix unit is involved, so no reduced
+    precision (bf16 passes, TF32) can reach the geometry, and with K=3/4
+    a product is a few FMAs per row anyway."""
     return (v[..., :, None] * M).sum(axis=-2)
 
 def saturate(x):

@@ -148,7 +148,7 @@ def grid_pcf(shadow_maps, cascade, shadow_pos, smap_size: int,
 
 def block_shadow_maps(shadow_maps):
     """(C, S, S) -> (C, S/8, S/8, 64): 8x8 texel blocks flat at 64 wide
-    (the TPU-compact layout the windowed PCF gathers from)."""
+    (the compact layout the windowed PCF gathers from)."""
     C, S, _ = shadow_maps.shape
     nb = S // 8
     return shadow_maps.reshape(C, nb, 8, nb, 8).transpose(
@@ -210,8 +210,8 @@ def superwindow_maps_u16(shadow_maps):
     depths quantized to 16-bit UNORM, packed 2 texels per u32 lane.
 
     Halves the gathered table AND the row width vs the f32 superwindow
-    (measured: 512B-row gathers from the half-size table run ~1.6x
-    faster). Quantization error is <= 7.7e-6, two orders of magnitude
+    (its speed on the GPU is not yet measured; ROADMAP S5). Quantization
+    error is <= 7.7e-6, two orders of magnitude
     below the replicated shadow depth bias (10000/2^24 ~= 6e-4,
     CRYCHIC.cpp:1601), so PCF acceptance is unchanged in practice; the
     reference itself compares against 24-bit UNORM depth (R24G8).
@@ -243,7 +243,7 @@ def quad_maps_u16(shadow_maps):
     replaces the 512-byte superwindow row. Same 4x texel redundancy /
     table bytes-per-cascade as the superwindow, but the narrow rows keep
     the gather stream cache-resident (screen-local receivers hit
-    map-local quads), measured ~2x faster per row than window rows."""
+    map-local quads)."""
     q = jnp.round(jnp.clip(shadow_maps, 0.0, 1.0) * 65535.0)
     return _quad_rows_from_u16(q.astype(jnp.uint32))
 
@@ -349,12 +349,11 @@ def poisson_pcf_windowed(shadow_maps, cascade, shadow_pos, smap_size: int,
 
     cx = u * S - 0.5
     cy = v * S - 0.5
-    # Layout discipline: TPU tiles the minor two dims to (8, 128), so any
-    # (..., 8, 8) tensor inflates 16x in HBM (observed OOM at 1080p). The
-    # shadow maps are re-blocked into 16x16-texel superwindows anchored
-    # per 8x8 block — u16-quantized and packed 2-per-u32 lane (128-wide
-    # rows) — and each receiver fetches its whole window as ONE flat row
-    # gather. All tap math below is elementwise over the flat axis.
+    # Layout: the shadow maps are re-blocked into 16x16-texel superwindows
+    # anchored per 8x8 block — u16-quantized and packed 2-per-u32 lane
+    # (128-wide rows) — and each receiver fetches its whole window as ONE
+    # flat row gather. All tap math below is elementwise over the flat
+    # axis.
     if shadow_maps.ndim == 4 and shadow_maps.dtype == jnp.uint32:
         swin = shadow_maps
     elif shadow_maps.ndim == 4:
@@ -372,13 +371,13 @@ def poisson_pcf_windowed(shadow_maps, cascade, shadow_pos, smap_size: int,
     qx0 = jnp.clip(x_lo >> 3, 0, nb - 1)
     qy0 = jnp.clip(y_lo >> 3, 0, nb - 1)
 
-    # flat 1D take (a multi-dim lax.gather costs ~3x more per row on TPU)
+    # flat 1D take: one row index per pixel
     shape = u.shape
     flat = swin.reshape(-1, swin.shape[-1])
     idx = (cascade * nb + qy0) * nb + qx0
     win_p = flat[idx]  # (..., 128) u32 packed — ONE row gather per pixel
 
-    # Y sub-window extraction, sized to the VPU vreg (128 lanes = 8 rows):
+    # Y sub-window extraction (64 lanes = 8 rows of the window):
     # a tap's tent support in y is (cy - (2.5|p|+1), cy + (2.5|p|+1)).
     # For the 13 disk entries with |p| < 1.2 that is under 4 texels, i.e.
     # integer rows floor(cy)-3 .. floor(cy)+4 — exactly 8 rows, extracted
@@ -386,9 +385,7 @@ def poisson_pcf_windowed(shadow_maps, cascade, shadow_pos, smap_size: int,
     # (selected from the 8 block-aligned offsets). The 3 long entries of
     # the reference's (not-unit-norm, |p| up to 1.234) disk reach 10 rows
     # and are evaluated on the full 16-row window. Identical results to
-    # the full evaluation at ~1.5x less VPU math (the dominant PCF cost);
-    # a single 10-row (160-lane) extraction loses — trailing dims pad to
-    # whole vregs, so 160 lanes cost the same as 256 (measured).
+    # the full evaluation at ~1.5x less tap arithmetic.
     inner = [i for i in range(N_SAMPLE)
              if float(np.hypot(*POISSON_DISK[i])) < 1.2]
     outer = [i for i in range(N_SAMPLE) if i not in inner]
@@ -434,7 +431,7 @@ def poisson_pcf_windowed(shadow_maps, cascade, shadow_pos, smap_size: int,
 
     # accumulate each tap's bilinear weights over its window; a bilinear
     # weight is the tent function relu(1 - |grid - tap|), which is
-    # branchless (4 VPU ops per axis instead of two selects)
+    # branchless (4 elementwise ops per axis instead of two selects)
     def tap_xy(i):
         pxd, pyd = POISSON_DISK[i]
         return ((pxd * c - pyd * sn) * radius,
@@ -497,8 +494,8 @@ def cascade_shadow_factor(shadow_maps, shadow_transforms, pos_w, eye_pos,
         # compiled-reference radius 0: one bilinear comparison tap from
         # 8-BYTE quad rows (pcf_single_tap) instead of 512-byte window
         # rows — same table bytes, but the narrow rows keep the gather
-        # cache-resident (measured ~2x faster) and skip the window
-        # extract/unpack/tent VPU work entirely
+        # cache-resident and skip the window extract/unpack/tent work
+        # entirely
         def quads_of(maps):
             if maps.dtype == jnp.uint32 and maps.ndim == 3:
                 return quad_from_packed(maps)
@@ -546,7 +543,8 @@ def cascade_shadow_factor(shadow_maps, shadow_transforms, pos_w, eye_pos,
     def swin_of(maps):
         if maps.dtype == jnp.uint32 and maps.ndim == 3:
             # pre-packed (C, S, S/2) texel-pair rows — parallel.sharded's
-            # atlas exchange ships u16 to halve ICI + reassembly bytes
+            # atlas exchange ships u16 to halve the all-gather and
+            # reassembly bytes
             return superwindow_from_packed(maps)
         return superwindow_maps_u16(maps)
 
@@ -556,10 +554,10 @@ def cascade_shadow_factor(shadow_maps, shadow_transforms, pos_w, eye_pos,
         # blends with itself, and blend is False there in both quirk
         # modes). Two half-size superwindow tables (cascades {0,2} and
         # {1,3}, 67 MB each at S=2048) therefore serve the exact same
-        # two row gathers as the single 134 MB table — and HBM gather
-        # latency drops with table size (measured ~24 ns/row at >=128 MB
-        # vs ~17 at 64 MB, experiments/pcf_split_probe.py). Each table is
-        # built INDEPENDENTLY from its own cascades' maps so XLA
+        # two row gathers as the single 134 MB table, with each gather
+        # reading a table half the size (not yet measured on the GPU,
+        # ROADMAP S5). Each table is built INDEPENDENTLY from its own
+        # cascades' maps so XLA
         # materializes two buffers instead of folding a slice back into
         # one large gather. Bit-exact: every selected PCF value comes
         # from the identical cascade window and projection.

@@ -78,9 +78,9 @@ def ndc_depth_to_view(z_ndc, proj_22, proj_32):
 
 def _quad_rows(depth_map):
     """(H, W) -> ((H*W, 4), W): each texel's 2x2 neighborhood as one row.
-    Scalar (4-byte) gather rows cost ~2.3x more than 16-byte rows on TPU,
-    so the 14 occluder taps fetch quad rows and use all 4 lanes for the
-    bilinear blend."""
+    The 14 occluder taps fetch one 16-byte quad row each instead of four
+    scalar rows and use all 4 lanes for the bilinear blend (not yet
+    measured on the GPU; ROADMAP S5)."""
     f = depth_map
     fx = jnp.roll(f, -1, axis=1)
     fy = jnp.roll(f, -1, axis=0)

@@ -15,13 +15,13 @@ the reference's deferred branch (SURVEY.md §1 data flow):
     [5] deferred PBR lighting + cascade PCF + ambient*SSAO + sky
         reflection, then sky pass             (CRYCHIC.cpp:238-279)
 
-TPU-first deviations (same output, different schedule):
+Deviations from the reference's schedule (same output):
 - One visibility-buffer rasterization feeds passes [2], [4] and the main
   depth: the reference rasterizes the scene 3x (normals, G-buffer, deferred
   re-shade with DEPTH_EQUAL); with a functional pipeline those are all
   reads of the same (depth, triangle-id) buffer.
 - Vertex transforms for all instances run as one dense batched
-  multiply-add (exact f32 on the VPU — see ops.shading.rowmat).
+  multiply-add (exact f32 — see ops.shading.rowmat).
 - Barriers/PSOs/descriptor heaps have no equivalent: data dependence is
   explicit in the dataflow graph.
 """
@@ -39,9 +39,20 @@ from ..ops import raster_pallas as rp
 from ..ops import clipping
 from ..ops import sampling, shading, shadows, ssao as ssao_ops
 
-# tile height of the shadow-atlas Pallas rasterization (see
-# render_shadow_atlas); capacity probes must bin with the same tiling
-SHADOW_TILE_H = 8
+
+def uses_kernel(cfg: RenderConfig) -> bool:
+    """cfg.use_pallas, with None resolved by the default backend."""
+    if cfg.use_pallas is None:
+        return rp.kernel_for_backend(jax.default_backend())
+    return cfg.use_pallas
+
+
+def raster_tile(cfg: RenderConfig):
+    """(tile_h, tile_w) of the rasterizer ``cfg`` selects. Binning, the
+    kernel's records and every capacity probe must use the same tile."""
+    if not uses_kernel(cfg):
+        return rz.TILE_H, rz.TILE_W
+    return rp.TILE_H, rp.TILE_W
 
 
 # ---------------------------------------------------------------------------
@@ -67,10 +78,10 @@ class DeviceDraw:
     # mat_pair, visibility and the camera do — app/renderer.py), so the
     # world-space transforms AND the 3-row-per-triangle vertex gather are
     # frame-constant; precomputing them removes ~600k narrow gather rows
-    # per frame (vertex stage 13.1 -> 2.7 ms, shadow 6.2 -> 2.8 ms
-    # measured, experiments/static_geom_probe.py — bit-exact: rowmat is
-    # per-row so it commutes with the corner gather, and a triangle's 3
-    # corners share one instance so the vis multiply commutes too).
+    # per frame (not yet measured on the GPU; ROADMAP S5). Bit-exact:
+    # rowmat is per-row so it commutes with the corner gather, and a
+    # triangle's 3 corners share one instance so the vis multiply
+    # commutes too.
     tri_posw_h: jnp.ndarray = None  # (T, 3, 4) world pos, homogeneous
     tri_instance: jnp.ndarray = None  # (T,) int32 instance per triangle
     tri_rest: jnp.ndarray = None  # (T, 3, 12) [posW3|nrm3|tan3|uv2|mat1]
@@ -313,7 +324,7 @@ def shadow_tri_world(draw: DeviceDraw, visibility: jnp.ndarray):
     (T, 3, 4) @ (4, 4) projection."""
     if draw.tri_posw_h is not None:
         # statics: the world transform + corner gather are precomputed;
-        # per frame only the vis multiply remains (6.2 -> 2.8 ms).
+        # per frame only the vis multiply remains.
         return (draw.tri_posw_h
                 * visibility[draw.tri_instance][:, None, None])
     W = draw.worlds[draw.vertex_instance]
@@ -341,14 +352,9 @@ def render_one_shadow_map(scene: DeviceScene, shadow_visibility, vp,
         tri_world = shadow_tri_world(scene.shadow, shadow_visibility)
     tris = rz.setup_tri_verts(shading.rowmat(tri_world, vp), None, S, S)
     tris = _shadow_bias(tris)
-    if cfg.use_pallas:
-        depth, _ = rp.rasterize_pallas(tris, S, S, cfg.shadow_pair_capacity,
-                                       with_ids=False,
-                                       interpret=cfg.pallas_interpret)
-    else:
-        bins = rz.bin_triangles(tris, S, S, cfg.shadow_pair_capacity)
-        depth, _ = rz.rasterize_binned(tris, bins, S, S, cfg.shadow_bin_cap,
-                                       with_ids=False)
+    bins = rz.bin_triangles(tris, S, S, cfg.shadow_pair_capacity)
+    depth, _ = rz.rasterize_binned(tris, bins, S, S, cfg.shadow_bin_cap,
+                                   with_ids=False)
     return depth
 
 
@@ -400,31 +406,25 @@ def render_shadow_atlas(scene: DeviceScene, shadow_visibility,
     """The given cascades rasterized in ONE pass into a horizontal
     (S, k*S) atlas (one binning + one kernel launch instead of k), then
     split to (k, S, S). The D3D12 reference records k sequential depth
-    passes (DrawSceneToShadowMap, CRYCHIC.cpp:2479); on TPU a single wider
-    launch amortizes binning and keeps the kernel grid busy.
+    passes (DrawSceneToShadowMap, CRYCHIC.cpp:2479); one wider launch
+    amortizes binning and gives the kernel k times the tiles.
 
     vps: (k, 4, 4) light view-proj per cascade (k static)."""
     S = cfg.shadow_map_size
     k = vps.shape[0]
     tris, xrange = shadow_atlas_tris(scene, shadow_visibility, vps, cfg)
-    # 8-row tiles: with the flat-streaming kernel, per-tile overhead is
-    # amortized across each program's contiguous pair range, so smaller
-    # tiles win — each pair block's (TB, 4P) plane evaluation is 4x
-    # cheaper (measured 102 -> 76 ms staged vs 32-row tiles); 32 tiles
-    # per program measured best for the atlas's short runs
     depth, _ = rp.rasterize_pallas(tris, k * S, S,
                                    cfg.shadow_pair_capacity,
-                                   tile_h=SHADOW_TILE_H,
                                    with_ids=False,
                                    interpret=cfg.pallas_interpret,
-                                   xrange=xrange, tiles_per_prog=32)
+                                   xrange=xrange)
     return jnp.stack([depth[:, c * S:(c + 1) * S] for c in range(k)])
 
 
 def render_shadow_maps(scene: DeviceScene, consts: FrameConstants,
                        cfg: RenderConfig) -> jnp.ndarray:
     """4 cascade depth-only renders -> (4, S, S) float32 depth."""
-    if cfg.use_pallas:
+    if uses_kernel(cfg):
         return render_shadow_atlas(scene, consts.shadow_visibility,
                                    consts.cascade_view_projs, cfg)
 
@@ -439,8 +439,8 @@ def render_shadow_maps(scene: DeviceScene, consts: FrameConstants,
 
 def _mat_select(table: jnp.ndarray, mat: jnp.ndarray) -> jnp.ndarray:
     """Per-pixel material attribute lookup as one-hot selects — the
-    material table is tiny (<= 16 rows) and a per-pixel gather costs
-    ~17ns/row, so M dense selects win by an order of magnitude."""
+    material table is tiny (<= 16 rows), so M dense selects replace a
+    per-pixel gather (not yet measured on the GPU; ROADMAP S5)."""
     M = table.shape[0]
     expand = table.ndim > 1
     out = None
@@ -483,13 +483,12 @@ def _build_resolve_records(tris: rz.ScreenTris, tri_attr: jnp.ndarray):
     """The 64-wide per-TRIANGLE resolve record table + dead-spread rows.
 
     Everything a pixel needs packed into ONE row (screen xy + 1/w + 3
-    vertices' attrs + material): a single row gather per pixel (TPU
-    gather latency is per row). Hot-row fix: tid < 0 (sky — 48% of
-    config 5's pixels) used to clamp to row 0, and the TPU gather engine
-    serializes on a hot row (measured ~8 ms/frame of contention,
-    experiments/hot_row_probe.py). Append _DEAD_SPREAD copies of row 0
-    and fan invalid pixels across them — gathered VALUES are identical,
-    so this is bit-exact."""
+    vertices' attrs + material): a single row gather per pixel. Hot-row
+    spread: tid < 0 (sky — about half of a frame's pixels) would clamp to
+    row 0, and gathers that all hit one row serialize; _DEAD_SPREAD
+    copies of row 0 fan invalid pixels out — gathered VALUES are
+    identical, so this is bit-exact. (Neither is measured on the GPU
+    yet; ROADMAP S5.)"""
     a = tri_attr[:, :, 4:]  # (T, 3, 12): posW3 nrm3 tan3 uv2 mat1
     rec = jnp.concatenate([
         tris.xy.reshape(-1, 6), tris.inv_w,             # 0:9
@@ -584,8 +583,8 @@ def _resolve_core(scene: DeviceScene, consts: FrameConstants,
         if cfg.aniso_probes == 0:
             # reference-quality evaluation (max_aniso exact-trilinear
             # probes, 2*max_aniso gathers) — the quality yardstick the
-            # production schedules are quantified against
-            # (experiments/aniso_quality.py); never the frame default
+            # production schedules are quantified against; never the
+            # frame default
             diffuse_sample, normal_sample = sampling.sample_pair_aniso_ref(
                 pool, pairidx, samp_uv, duv_x, duv_y, cfg.anisotropy)
         else:
@@ -636,7 +635,7 @@ _G_CLEAR = dict(pos_w=(0.0, 0.0, 0.0), normal_w=(0.0, 0.0, 0.0),
                 roughness=(0.0,), metalness=(0.0,),
                 shininess_alpha=(0.0,))
 
-# compacted shade-tile geometry (matches the Mosaic (8, 128) layout unit)
+# compacted shade-tile geometry
 SHADE_TILE_H = 8
 SHADE_TILE_W = 128
 
@@ -647,15 +646,14 @@ def _resolve_compacted(scene: DeviceScene, consts: FrameConstants,
     """Tile-compacted resolve: gathers are issued ONLY for (8, 128) pixel
     tiles containing at least one covered pixel.
 
-    The TPU gather engine pays its per-ROW issue cost regardless of
-    index locality (measured: a full-screen gather costs ~9 ns/row even
-    when most rows are the dead-spread window), so sparsely covered
-    frames (config 2: a skull on sky pays ~43 ms of resolve for ~12%
-    coverage) can only get cheaper by ISSUING FEWER ROWS. Compaction is
-    static-shape: a cumsum over the ~2k tile-occupancy bits, one CB-row
-    gather in, and one NT-row gather + one packed transpose out (all
-    O(tiles), trivial next to the 2M per-pixel rows they remove; scatter
-    was measured ~10x slower than the inverse gather here). cfg.
+    A sparsely covered frame (a skull on sky) wastes most of a
+    full-screen resolve on pixels whose result is discarded; compaction
+    issues gathers for occupied tiles only (not yet measured on the GPU;
+    ROADMAP S5).
+    Compaction is static-shape: a cumsum over the ~2k tile-occupancy
+    bits, one CB-row gather in, and one NT-row gather + one packed
+    transpose out (all O(tiles), trivial next to the 2M per-pixel rows
+    they remove; the inverse is a gather, not a scatter). cfg.
     shade_tile_capacity (CB) is autosized like the pair capacities, with
     the same check_capacity guard."""
     TS_H, TS_W = SHADE_TILE_H, SHADE_TILE_W
@@ -686,10 +684,9 @@ def _resolve_compacted(scene: DeviceScene, consts: FrameConstants,
 
     g = _resolve_core(scene, consts, cfg, rec, T, tid_c, px, py, pix)
 
-    # Expansion back to full-res: GATHER-based inverse (XLA scatter on
-    # TPU lowered ~10x slower than the equivalent gather here — the
-    # first cut scattered 7 planes and cost +35 ms at 1080p), and ONE
-    # packed 16-channel transpose instead of one per plane.
+    # Expansion back to full-res: GATHER-based inverse (not a scatter of
+    # 7 planes), and ONE packed 16-channel transpose instead of one per
+    # plane.
     names = ["pos_w", "normal_w", "normal_v", "albedo", "roughness",
              "metalness", "shininess_alpha"]
     packed = jnp.concatenate([g[n] for n in names], axis=-1)  # (CB,L,16)
@@ -799,8 +796,8 @@ def ssao_blur(scene: DeviceScene, consts: FrameConstants, cfg: RenderConfig,
 # radius of any covered pixel: 15 (3 blur passes x radius 5 per axis)
 # + 1 (the full-res bilinear upsample's half-res support) = 16 px. The
 # SSAO tile is (8, 32) — finer than the shade tile's (8, 128) because
-# the dilation makes wide tiles over-inclusive (measured on config 5:
-# 65% occupancy at (8, 128) + (2, 1) dilation vs 58% at (8, 32)); the
+# the dilation makes wide tiles over-inclusive (fewer tiles survive at
+# (8, 32) on config 5); the
 # auxiliary in/out gathers stay O(tiles), trivial next to the 14 tap
 # rows per pixel they remove.
 SSAO_TILE_H = 8
@@ -828,10 +825,9 @@ def _ssao_occlusion_compacted(scene: DeviceScene, consts: FrameConstants,
                               cfg: RenderConfig, n_half, d_half, depth,
                               valid) -> jnp.ndarray:
     """Tile-compacted SSAO occlusion: the 14 tap gathers are issued ONLY
-    for (8, 128) half-res tiles within the blur/upsample support of a
-    covered pixel (same rationale and shape as _resolve_compacted — the
-    gather engine pays per ISSUED row, so sky rows can only get cheaper
-    by not being issued).
+    for (8, 32) half-res tiles within the blur/upsample support of a
+    covered pixel (same rationale and shape as _resolve_compacted: sky
+    rows are not issued at all).
 
     EXACT on the full access map up to XLA constant-folding fp noise
     (measured <= 3e-6, zero when compared inside one jit): the fill for
@@ -1054,7 +1050,7 @@ def lighting_pass(scene: DeviceScene, consts: FrameConstants,
         # sky reflection on geometry (Default.hlsl:176-179) and the sky
         # pass for empty pixels (sky.hlsl:33-47 — the eye-centered sphere's
         # PosL is the view ray) are mutually exclusive per pixel, so ONE
-        # cubemap gather serves both (gathers are the cost on TPU).
+        # cubemap gather serves both.
         r = shading.reflect(-view, normal)
         ndc_x = (jnp.arange(W, dtype=jnp.float32) + 0.5) / W * 2.0 - 1.0
         ndc_y = (1.0 - (jnp.arange(H, dtype=jnp.float32) + row_offset + 0.5)
@@ -1125,9 +1121,9 @@ def _alpha_peel(tris: rz.ScreenTris, uv_tri, mat_tri, scene: DeviceScene,
 
     A GPU gets this for free (the PS clips before the depth test,
     Shadows.hlsl:49-65); a visibility-buffer rasterizer cannot, because
-    coverage is decided without textures. The TPU shape of the problem:
+    coverage is decided without textures. The shape of the problem here:
     the AT layer is SMALL (a handful of fences/foliage quads), so an
-    O(T_alpha x pixels) dense edge-function loop on the VPU plus
+    O(T_alpha x pixels) dense edge-function loop plus
     ``n_peels`` rounds of (winner-record gather + one texture row gather)
     is cheaper and simpler than threading texture fetches through the
     binned kernel. Fragments behind ``n_peels`` failing layers are
@@ -1333,14 +1329,14 @@ def capacity_requirements(scene: DeviceScene, consts: FrameConstants,
         return tile_counts(tx0, ty0, bw, bh, ntx, nty).max()
 
     tris, _ = main_view_tris(scene, consts, cfg)
-    th = rp.TILE_H if cfg.use_pallas else rz.TILE_H
+    tile = raster_tile(cfg)
     tx0, ty0, bw, bh, ntx, nty = rz._tile_bbox(tris, cfg.width, cfg.height,
-                                               th, rz.TILE_W)
+                                               *tile)
     main_pairs = (bw * bh).astype(jnp.int32).sum()
     main_max_tile = max_tile_count(tx0, ty0, bw, bh, ntx, nty)
     # occupied-SHADE-tile upper bound (tiles any visible triangle's bbox
     # touches >= tiles with covered pixels): sizes shade_tile_capacity
-    if (th, rz.TILE_W) == (SHADE_TILE_H, SHADE_TILE_W):
+    if tile == (SHADE_TILE_H, SHADE_TILE_W):
         shade_occ = tile_counts(tx0, ty0, bw, bh, ntx, nty) > 0
     else:
         sb = rz._tile_bbox(tris, cfg.width, cfg.height, SHADE_TILE_H,
@@ -1359,7 +1355,7 @@ def capacity_requirements(scene: DeviceScene, consts: FrameConstants,
     shade_tiles = shade_occ.sum()
 
     # occupied-SSAO-tile bound (the compacted occlusion's tile grid is
-    # (8, 128) HALF-res pixels = (8k, 128k) full-res; bbox occupancy is
+    # (8, 32) HALF-res pixels = (8k, 32k) full-res; bbox occupancy is
     # a superset of coverage, dilated like the frame's occupancy)
     ssao_tiles = jnp.int32(0)
     if cfg.ssao_enabled:
@@ -1391,13 +1387,12 @@ def capacity_requirements(scene: DeviceScene, consts: FrameConstants,
     if cfg.shadows_enabled:
         tri_world = shadow_tri_world(scene.shadow,
                                      consts.shadow_visibility)
+        sh_tile = raster_tile(cfg)
         for c in range(C):
             t = rz.setup_tri_verts(
                 shading.rowmat(tri_world, consts.cascade_view_projs[c]),
                                    None, S, S)
-            sh_th = SHADOW_TILE_H if cfg.use_pallas else rz.TILE_H
-            tx0, ty0, bw, bh, ntx, nty = rz._tile_bbox(t, S, S, sh_th,
-                                                       rz.TILE_W)
+            tx0, ty0, bw, bh, ntx, nty = rz._tile_bbox(t, S, S, *sh_tile)
             shadow_pairs = shadow_pairs + (bw * bh).astype(jnp.int32).sum()
             shadow_max_tile = jnp.maximum(
                 shadow_max_tile,
@@ -1420,7 +1415,7 @@ def render_frame(scene: DeviceScene, consts: FrameConstants,
     # vertex stage + near-plane clip + main rasterization (one visibility
     # buffer feeds the normal/depth, G-buffer and lighting passes)
     tris, tri_attr = main_view_tris(scene, consts, cfg)
-    if cfg.use_pallas:
+    if uses_kernel(cfg):
         depth, tid = rp.rasterize_pallas(tris, W, H, cfg.pair_capacity,
                                          interpret=cfg.pallas_interpret)
     else:

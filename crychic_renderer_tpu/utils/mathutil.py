@@ -3,7 +3,7 @@
 The reference renderer uses DirectXMath throughout: ROW-VECTOR convention
 (``p' = p @ M``), LEFT-HANDED view/projection, NDC depth in [0, 1], and a
 y-flip in the NDC->texture matrix. We keep these conventions exactly so the
-TPU renderer stays pixel-comparable with the D3D12 reference
+renderer stays pixel-comparable with the D3D12 reference
 (see /root/reference/Common/Camera.cpp:116-129 XMMatrixPerspectiveFovLH,
 /root/reference/CRYCHIC.cpp:805-809 the T matrix).
 

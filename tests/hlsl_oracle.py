@@ -4,10 +4,9 @@ Written LINE-BY-LINE from the reference shaders (cited per function) and
 kept textually close to the HLSL — deliberately slow, scalar, and sharing
 NOTHING with crychic_renderer_tpu.ops. tests/test_hlsl_oracle.py evaluates
 this oracle at ~1k random pixel configurations against the production
-(vectorized, TPU-shaped) implementations, so a transcription error in ops/
+(vectorized, gather-shaped) implementations, so a transcription error in ops/
 (a swapped BRDF coefficient, a wrong fade constant) fails loudly even
-though every golden image in the repo is self-blessed (VERDICT r3
-Missing #1).
+though every golden image in the repo is self-blessed.
 
 HLSL semantics notes:
 - float3 -> np.array(3, float32); mul(v, M) is row-vector v @ M.

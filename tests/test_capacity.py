@@ -1,5 +1,5 @@
-"""Rasterizer capacity guards: auto-sizing + overflow detection
-(VERDICT r1 item 6 — no more silent triangle drops)."""
+"""Rasterizer capacity guards: auto-sizing + overflow detection (no
+silent triangle drops)."""
 import dataclasses
 
 import pytest
@@ -44,7 +44,7 @@ def test_shade_tiles_count_alpha_layer():
     """alpha_merge_main sets tid >= 0 in tiles no OPAQUE bbox touches
     (fence bars against sky), so shade-tile occupancy must include the
     AT layer's bboxes — else the compacted resolve clear-fills covered
-    alpha pixels without tripping check_capacity (ADVICE r4 high)."""
+    alpha pixels without tripping check_capacity."""
     import functools
 
     import jax

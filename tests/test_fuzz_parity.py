@@ -3,13 +3,13 @@ and through the sharded band pipeline.
 
 The committed goldens pin five fixed viewpoints; this fuzzes the
 viewpoint axis — random walk/strafe/pitch/yaw sequences must render
-identically through the Pallas streaming kernel (interpret mode) and the
-pure-XLA rasterizer. Both paths snap vertices identically, so any
+identically through the raster kernel (interpret mode) and the pure-XLA
+rasterizer. Both paths snap vertices identically, so any
 visible disagreement beyond fp edge rounding is a binning/clipping/
 capacity bug that the fixed-camera goldens cannot see (e.g. a
 tile-boundary case that only a particular frustum hits).
 
-Coverage (VERDICT r3 weak #6 broadened the original config-4-only fuzz):
+Coverage:
 - config 4 (1/8): cascades + SSAO + deferred, the original axis;
 - config 2 (1/8): forward path, skull mesh, 3-light non-PBR;
 - config 5 (1/8): anisotropy, animated material slots (t=0.1), skull +
@@ -55,16 +55,11 @@ def renderer_pair(request):
     cfg = _small_cfg(cfg)
     r_xla = Renderer(scene, dataclasses.replace(cfg, use_pallas=False),
                      lights=lights)
-    r_pl = Renderer(scene, cfg, lights=lights)
-    # Renderer downgrades use_pallas on CPU backends; interpret mode runs
-    # the kernel logic anywhere. Re-autosize at the kernel's 8-row tiles,
-    # then REBUILD the jitted frame fn — __init__ already bound it with
-    # the downgraded cfg, so without this the fixture would silently
-    # compare XLA against XLA (found by review).
-    r_pl.cfg = dataclasses.replace(r_pl.cfg, use_pallas=True,
-                                   pallas_interpret=True)
-    r_pl._autosize_capacity()
-    r_pl.rebind_frame_fn()
+    # the kernel in interpret mode (its capacities autosize at its tiles)
+    r_pl = Renderer(scene, dataclasses.replace(cfg, use_pallas=True,
+                                               pallas_interpret=True),
+                    lights=lights)
+    assert r_pl.cfg.use_pallas and not r_xla.cfg.use_pallas
     return request.param, r_xla, r_pl
 
 
@@ -86,7 +81,7 @@ def test_random_pose_pallas_xla_parity(renderer_pair, seed):
     frac = (diff > 0.02).mean()
     assert frac < 0.005, (
         f"config {config} seed {seed}: {frac:.4%} of pixels disagree >2% "
-        f"between the Pallas and XLA rasterizers (max {diff.max():.4f})")
+        f"between the kernel and XLA rasterizers (max {diff.max():.4f})")
 
 
 @pytest.mark.slow

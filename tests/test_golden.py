@@ -83,7 +83,7 @@ GOLDEN_DIR = __import__("pathlib").Path(__file__).parent / "goldens"
 
 
 def test_golden_image_cascade(small_frame):
-    """True golden-image regression (VERDICT r1 item 6 of 'weak'): the
+    """True golden-image regression: the
     committed golden pins every pass's output. A code change that shifts
     >2% intensity on >0.5% of pixels fails. Regenerate deliberately with
     GOLDEN_UPDATE=1 python -m pytest tests/test_golden.py -k cascade."""

@@ -1,7 +1,6 @@
 """Committed golden images for ALL 5 BASELINE configs + per-pass goldens
-(VERDICT r2 weak #5: round 2 committed goldens only for two non-BASELINE
-scenes, so a regression confined to config-5 content — anisotropy,
-animated textures, car/skull materials — or to a single pass was
+(without them a regression confined to config-5 content — anisotropy,
+animated textures, car/skull materials — or to a single pass would be
 invisible to CI).
 
 Coverage:
@@ -121,12 +120,11 @@ def test_golden_config4_ssao_access(cfg4_setup):
 @pytest.mark.slow
 @pytest.mark.parametrize("c", [4, 5])
 def test_golden_fast_preset(c):
-    """The --fast preset's IMAGE is pinned too (VERDICT r3 weak #3: the
-    preset's cost was measured but its output was unregressioned). The
+    """The --fast preset's IMAGE is pinned too. The
     golden is generated with cfg.fast_preset() — the one shared preset
     definition — so a preset-definition drift or a fast-path regression
-    both show up here. The preset's distance FROM parity is quantified
-    separately (PSNR/SSIM table in PERF.md, experiments/fast_quality.py)."""
+    both show up here. The preset's distance FROM parity at native 1080p
+    is not measured yet (ROADMAP S7)."""
     from crychic_renderer_tpu.models.scenes_baseline import CONFIGS
     from crychic_renderer_tpu.app.renderer import Renderer
 

@@ -391,8 +391,8 @@ def test_bc7_fuzz_vs_pillow_all_modes():
 # ---------------------------------------------------------------------------
 # BC6H (io/bc6h.py) — the DX10 BC6H_UF16/SF16 path of the reference's
 # DDSTextureLoader format table (DDSTextureLoader.cpp:557-700). HDR: decodes
-# to float32. The layout of all 14 modes is verified per-bit against Pillow
-# in experiments/bc6h_layout_probe.py; the fuzz here re-checks every mode
+# to float32. The layout of all 14 modes was verified per-bit against
+# Pillow through amplified probe blocks; the fuzz here re-checks every mode
 # under Pillow emulation (Pillow deviates from the D3D spec in two measured
 # ways: it skips the +32 interpolation rounding, and it omits the final
 # sign-extension after the SF16 transformed delta add).

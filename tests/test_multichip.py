@@ -17,10 +17,8 @@ def test_dryrun_multichip_entry():
 @pytest.mark.slow
 @pytest.mark.parametrize("n_dev", [16, 32, 64])
 def test_dryrun_at_scaling_table_device_counts(n_dev):
-    """PERF.md's scaling table projects 16/32-chip frames and the 2x32
-    replica configuration projects the 64-chip number; run the full
-    dryrun (XLA 1080-row + Pallas band + replica axis — at n_dev=64 the
-    replica leg IS the projected 2x32 mesh) at those counts.
+    """The full dryrun (XLA 1080-row + kernel band + replica axis — at
+    n_dev=64 the replica leg is a 2x32 mesh) at large device counts.
     Needs its own interpreter: the virtual device count is fixed at
     backend init, so this spawns a subprocess with a larger mesh."""
     import os
@@ -39,7 +37,7 @@ def test_dryrun_at_scaling_table_device_counts(n_dev):
         env=env, cwd=repo_root, capture_output=True, text=True,
         timeout=1500)
     assert out.returncode == 0, out.stdout + out.stderr
-    assert "pallas band ok" in out.stdout, out.stdout
+    assert "kernel band ok" in out.stdout, out.stdout
     assert "replica axis ok" in out.stdout, out.stdout
 
 
@@ -79,9 +77,6 @@ def _small_scene_and_cfg(with_alpha=False, **cfg_overrides):
         "white1x1", "default_nmap", "sky_cube", "default_nmap",
         "white1x1", "white1x1"])
     r = Renderer(scene, cfg)
-    # Renderer downgrades use_pallas on the CPU backend; put the requested
-    # value back so the comparison exercises the cfg under test.
-    r.cfg = dataclasses.replace(r.cfg, **cfg_overrides)
     return r, r.cfg
 
 
@@ -124,8 +119,8 @@ def test_sharded_matches_single_device(n_dev):
 
 @pytest.mark.slow
 def test_sharded_pallas_kernel_matches_single():
-    """The sharded path runs the SAME Pallas rasterizer the single-chip
-    frame uses (interpret mode on CPU), including the shadow atlas."""
+    """The sharded path runs the SAME raster kernel the single-card frame
+    uses (interpret mode on CPU), including the shadow atlas."""
     r, cfg = _small_scene_and_cfg(use_pallas=True, pallas_interpret=True,
                                   ssao_enabled=False)
     _compare_sharded(cfg, r, 2)
@@ -144,7 +139,7 @@ def test_sharded_fast_preset_matches_single():
     """The performance preset (half-res PCF factor + quarter-res SSAO)
     composes with band sharding BAND-EXACTLY: the half-res factor is
     evaluated at global phase and upsampled from the all-gathered full
-    map, so no seams at band boundaries (VERDICT r2 weak #3)."""
+    map, so no seams at band boundaries."""
     r, cfg = _small_scene_and_cfg(fast_shadow_factor=True, ssao_scale=4,
                                   aniso_probes=2)
     _compare_sharded(cfg, r, 4, tight=1e-3)
@@ -163,7 +158,7 @@ def test_sharded_forward_debug_quad_matches_single():
 @pytest.mark.slow
 def test_sharded_odd_bands_padding():
     """Heights that do NOT divide across devices (the 1080/8 headline
-    wall, VERDICT r2 weak #2a): 60 rows over 8 devices pad to 8x8-row
+    wall): 60 rows over 8 devices pad to 8x8-row
     bands and the pad rows are cropped."""
     r, cfg = _small_scene_and_cfg(height=60)
     _compare_sharded(cfg, r, 8)
@@ -215,7 +210,7 @@ def test_replicated_frames_match_single():
 def test_check_band_capacity_guard():
     """check_band_capacity passes at autosized capacities and raises when
     a device's pair load exceeds the band capacity (the sharded mirror of
-    the viewer's per-frame overflow guard — VERDICT r2 weak #4)."""
+    the viewer's per-frame overflow guard)."""
     from crychic_renderer_tpu.parallel import sharded
 
     r, cfg = _small_scene_and_cfg()
@@ -320,16 +315,17 @@ def test_interleaved_binning_is_exact():
 
     dp_full, tp_full = rp.rasterize_pallas(tris, W, H, 1 << 14,
                                            interpret=True)
-    nty8 = -(-H // rp.TILE_H)
+    th = rp.TILE_H
+    nty_k = -(-H // th)
     for d in range(n):
         dd, tt = rp.rasterize_pallas(tris, W, H, 1 << 13, interpret=True,
                                      row_stride=(n, d))
-        for s in range(-(-nty8 // n)):
+        for s in range(-(-nty_k // n)):
             ty = s * n + d
-            if ty >= nty8:
+            if ty >= nty_k:
                 continue
-            r0, r1 = ty * rp.TILE_H, min((ty + 1) * rp.TILE_H, H)
-            sl = slice(s * rp.TILE_H, s * rp.TILE_H + (r1 - r0))
+            r0, r1 = ty * th, min((ty + 1) * th, H)
+            sl = slice(s * th, s * th + (r1 - r0))
             assert np.array_equal(np.asarray(dd)[sl],
                                   np.asarray(dp_full)[r0:r1])
             assert np.array_equal(np.asarray(tt)[sl],

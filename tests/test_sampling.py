@@ -36,7 +36,7 @@ def test_pair_pool_addressing():
 
 
 def test_small_class_lod_samples_mip0_at_1to1():
-    """VERDICT r1 item 4: a 64^2 texture sampled at 1:1 screen scale (uv
+    """A 64^2 texture sampled at 1:1 screen scale (uv
     footprint 1/64 per pixel) must read mip 0 — the round-1 pool scaled
     derivatives by the BIG class size (512), overestimating small-class
     LOD by 3 levels (8x blur)."""
